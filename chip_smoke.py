@@ -2,21 +2,31 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (vkresample_tpu_torch: u=2 R2C upscale with CAS
-sharpen, 2048x1024 -> 4096x2048, half storage -p 2 and fp32 -p 0) on the
-card, and fails (non-zero exit, no result line) unless every phase passes:
+Drives the port's routes (vkresample_tpu_torch: R2C upscale with CAS
+sharpen, half storage -p 2 and fp32 -p 0) on the card at full frame sizes,
+and fails (non-zero exit, no result line) unless every phase passes:
 
   1. device   a CUDA device is present; prints its name and power limit
   2. build    builds the CUDA kernels from vkresample_tpu_torch/csrc/
   3. kernels  each kernel against its plain PyTorch version on seeded
-              inputs at the main path's shapes (<= 1 u8 LSB, >= 99.9 %
-              of pixels identical)
-  4. slice    build_upscale(plan, planes_out=True), the CLI's call, at the
-              flagship shape in -p 2 and -p 0 against the fp64 oracle
-              (<= 1 LSB), with every kernel's launch counter read around it
+              inputs at its routes' shapes (<= 1 u8 LSB, >= 99.9 % of
+              pixels identical)
+  4. routes   each route through the entry point a user calls
+              (build_upscale(plan, planes_out=True) as the CLI does, or
+              upscale()) against the fp64 oracle (<= 1 LSB); every
+              kernel's launch counter is set to 0 just before each route
+              and read just after, and must be > 0 exactly for the
+              route's kernels:
+                quad     2048x1024 -> 4096x2048 u=2, -p 2 and -p 0    K1
+                rows     1440x1080 -> 2880x2160 u=2, -p 2 and -p 0    K2
+                woven    upscale() 2048x1024 -> 4096x2048, -p 2       K2
+                u=3      1280x720 -> 3840x2160, -p 2 and -p 0         K3
+                chain    1280x720 -> 1920x1080 at 1.5x, -p 0          K3
+                xla      -engine xla 1920x1080 -> 3840x2160, -p 0     K3
   5. CLI      python -m vkresample_tpu_torch on the samples (-validate),
-              and the 256x128 sample against its golden PNG (<= 1 LSB)
-  6. times    ms/frame of both slice runs (-n 20, CUDA events) and each
+              the 256x128 sample at u=2 and u=1.5 against its golden PNGs
+              (<= 1 LSB), and a frame whose width is not a multiple of 128
+  6. times    ms/frame of every route (-n 20, CUDA events) and each
               kernel against its plain version
 
 It imports nothing of JAX.  The last stdout line is the result JSON.
@@ -31,9 +41,22 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
-FLAGSHIP = (1024, 2048)  # (h, w) of the source frame
 TOL_LSB = 1
 MIN_IDENTICAL = 0.999
+C = 3
+
+# route name -> ((h, w), upscale, precision, engine, entry, kernels it runs)
+ROUTES = {
+    "quad -p 2": ((1024, 2048), 2.0, "HALF", "AUTO", "planes", {"K1"}),
+    "quad -p 0": ((1024, 2048), 2.0, "SINGLE", "AUTO", "planes", {"K1"}),
+    "rows -p 2": ((1080, 1440), 2.0, "HALF", "AUTO", "planes", {"K2"}),
+    "rows -p 0": ((1080, 1440), 2.0, "SINGLE", "AUTO", "planes", {"K2"}),
+    "woven upscale() -p 2": ((1024, 2048), 2.0, "HALF", "AUTO", "woven", {"K2"}),
+    "u=3 -p 2": ((720, 1280), 3.0, "HALF", "AUTO", "woven", {"K3"}),
+    "u=3 -p 0": ((720, 1280), 3.0, "SINGLE", "AUTO", "woven", {"K3"}),
+    "chain 1.5x -p 0": ((720, 1280), 1.5, "SINGLE", "AUTO", "woven", {"K3"}),
+    "xla -p 0": ((1080, 1920), 2.0, "SINGLE", "XLA", "woven", {"K3"}),
+}
 
 
 def gpu_line() -> str:
@@ -74,6 +97,20 @@ def u8_diff(got, want):
     return d, same
 
 
+def woven_hwc(out, fmt, plan):
+    """A route's output as the (H, W, C) uint8 host image."""
+    import numpy as np
+
+    from vkresample_tpu_torch.io.png import weave4_host
+
+    if fmt == "quad":
+        return np.moveaxis(weave4_host(*[p.cpu().numpy() for p in out]), 0, -1)
+    if fmt == "rows":
+        e, d = (p.cpu().numpy() for p in out)
+        return np.moveaxis(np.stack([e, d], axis=2).reshape(C, plan.H, plan.W), 0, -1)
+    return out.cpu().numpy()
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -85,23 +122,35 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"[1 device] {card}  torch {torch.__version__} cuda {torch.version.cuda}")
 
-    from vkresample_tpu_torch import Precision, UpscalePlan, _build, build_upscale
-    from vkresample_tpu_torch.io.png import read_png, weave4_host
+    from vkresample_tpu_torch import Engine, Precision, UpscalePlan, _build, build_upscale, upscale
+    from vkresample_tpu_torch.io.png import read_png, write_png
+    from vkresample_tpu_torch.ops import cas_cuda
     from vkresample_tpu_torch.ops.cas import to_i16_storage
-    from vkresample_tpu_torch.ops.cas_cuda import (
-        cas_parity4_planes_u2,
-        cas_parity4_planes_u2_reference,
-    )
     from vkresample_tpu_torch.oracle.numpy_ref import upscale_oracle
     from vkresample_tpu_torch.pipeline.timing import time_amortized
+    from vkresample_tpu_torch.pipeline.upscale import planes_format
 
     kernels = {
-        "cas_parity4_planes_u2": dict(
-            fn=cas_parity4_planes_u2,
-            plain=cas_parity4_planes_u2_reference,
-            route="cuda",
+        "K1": dict(
+            name="cas_parity4_planes_u2", fn=cas_cuda.cas_parity4_planes_u2,
+            plain=cas_cuda.cas_parity4_planes_u2_reference, n_in=4,
             source="vkresample_tpu_torch/csrc/cas_quad.cu",
             replaces="vkresample_tpu/ops/cas_pallas.py:1432",
+            shapes=[(C, 1024, 2048), (2, 37, 200)],
+        ),
+        "K2": dict(
+            name="cas_parity_planes_u2", fn=cas_cuda.cas_parity_planes_u2,
+            plain=cas_cuda.cas_parity_planes_u2_reference, n_in=2,
+            source="vkresample_tpu_torch/csrc/cas_parity.cu",
+            replaces="vkresample_tpu/ops/cas_pallas.py:777",
+            shapes=[(C, 1080, 2880), (2, 37, 200)],
+        ),
+        "K3": dict(
+            name="cas_quantize", fn=cas_cuda.cas_quantize,
+            plain=cas_cuda.cas_quantize_reference, n_in=1,
+            source="vkresample_tpu_torch/csrc/cas_woven.cu",
+            replaces="vkresample_tpu/ops/cas_pallas.py:543",
+            shapes=[(C, 2160, 3840), (2, 37, 201)],
         ),
     }
 
@@ -114,99 +163,126 @@ def main() -> int:
         f"in {time.perf_counter() - t0:.3f} s (nvcc {_build.last_build['seconds']:.3f} s)"
     )
 
-    # 3. each kernel against its plain version at the main path's shapes
+    # 3. each kernel against its plain version at its routes' shapes
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    max_err = 0
-    C = 3
-    for shape in [(C,) + FLAGSHIP, (2, 37, 200)]:
-        base = [torch.rand(shape, generator=gen, device=dev) * 1.3 - 0.1 for _ in range(4)]
-        for planes in (base, [to_i16_storage(p) for p in base]):
-            got = cas_parity4_planes_u2(*planes, 0.2)
-            torch.cuda.synchronize()
-            want = cas_parity4_planes_u2_reference(*planes, 0.2)
-            d, same = u8_diff(got, want)
-            print(f"[3 kernels] quad CAS {shape} {planes[0].dtype}: "
-                  f"max|diff| {d} LSB, identical {same:.6f}")
-            require(d <= TOL_LSB and same >= MIN_IDENTICAL,
-                    f"quad CAS disagrees with its plain version at {shape}")
-            max_err = max(max_err, d)
-    kernels["cas_parity4_planes_u2"]["max_abs_err"] = max_err
 
-    # 4. the slice end to end, through the entry point the CLI uses
-    h, w = FLAGSHIP
-    img = np.random.default_rng(SEED).integers(0, 256, (h, w, C), np.uint8)
-    plans = {
-        mode: UpscalePlan(h=h, w=w, upscale=2.0, precision=prec)
-        for mode, prec in (("-p 2", Precision.HALF), ("-p 0", Precision.SINGLE))
-    }
-    t0 = time.perf_counter()
-    want = upscale_oracle(img, plans["-p 0"])
-    print(f"[4 slice] fp64 oracle {w}x{h} -> {2 * w}x{2 * h} in "
-          f"{time.perf_counter() - t0:.3f} s")
-    fns = {}
+    def pre_cas(shape, n):
+        return [torch.rand(shape, generator=gen, device=dev) * 1.3 - 0.1 for _ in range(n)]
+
+    for kid, k in kernels.items():
+        k["max_abs_err"] = 0
+        for shape in k["shapes"]:
+            base = pre_cas(shape, k["n_in"])
+            for ins in (base, [to_i16_storage(p) for p in base]):
+                got = k["fn"](*ins, 0.2)
+                torch.cuda.synchronize()
+                want = k["plain"](*ins, 0.2)
+                got, want = ((x,) if k["n_in"] == 1 else x for x in (got, want))
+                d, same = u8_diff(got, want)
+                print(f"[3 kernels] {kid} {k['name']} {shape} {ins[0].dtype}: "
+                      f"max|diff| {d} LSB, identical {same:.6f}")
+                require(d <= TOL_LSB and same >= MIN_IDENTICAL,
+                        f"{kid} disagrees with its plain version at {shape}")
+                k["max_abs_err"] = max(k["max_abs_err"], d)
+
+    # 4. every route at full size, through the user's entry points
+    oracles, imgs, fns = {}, {}, {}
     for k in kernels.values():
-        k["fn"].launches = 0
-    for mode, plan in plans.items():
+        k["launches"] = 0
+    for route, ((h, w), u, prec, engine, entry, runs) in ROUTES.items():
+        plan = UpscalePlan(h=h, w=w, upscale=u, precision=Precision[prec],
+                           engine=Engine[engine])
+        if (h, w) not in imgs:
+            imgs[(h, w)] = np.random.default_rng(SEED + h + w).integers(0, 256, (h, w, C), np.uint8)
+        img = imgs[(h, w)]
+        if (h, w, u) not in oracles:
+            t0 = time.perf_counter()
+            oracles[(h, w, u)] = upscale_oracle(img, plan)
+            print(f"[4 routes] fp64 oracle {w}x{h} -> {plan.W}x{plan.H} in "
+                  f"{time.perf_counter() - t0:.3f} s")
+        fmt = planes_format(plan) if entry == "planes" else None
+        require(entry == "woven" or fmt is not None, f"{route}: no parity planes")
+        for k in kernels.values():
+            k["fn"].launches = 0
         t0 = time.perf_counter()
-        fns[mode] = build_upscale(plan, dev, planes_out=True)
-        out = fns[mode](img)
+        if entry == "planes":
+            fns[route] = build_upscale(plan, dev, planes_out=True)
+            out = fns[route](img)
+        else:
+            out = upscale(img, u, plan=plan, device=dev)
+            fns[route] = build_upscale(plan, dev)
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
-        require(len(out) == 4 and all(
-            p.shape == (C, h, w) and p.dtype == torch.uint8 and p.is_cuda
-            for p in out), f"slice {mode}: bad planes")
-        got = np.moveaxis(weave4_host(*[p.cpu().numpy() for p in out]), 0, -1)
-        d = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
-        print(f"[4 slice] {mode}: first frame (banks built, uploaded) in "
-              f"{setup:.3f} s; max|diff| vs fp64 oracle {d} LSB")
-        require(d <= TOL_LSB, f"slice {mode} is {d} LSB from the oracle")
-    for name, k in kernels.items():
-        k["launches"] = k["fn"].launches
-        print(f"[4 slice] {name} launches on the main path: {k['launches']}")
-        require(k["launches"] > 0, f"{name} never launched on the main path")
+        counts = {kid: k["fn"].launches for kid, k in kernels.items()}
+        got = woven_hwc(out, fmt, plan)
+        require(got.shape == (plan.H, plan.W, C) and got.dtype == np.uint8,
+                f"{route}: bad output {got.shape} {got.dtype}")
+        d = int(np.abs(got.astype(np.int16) - oracles[(h, w, u)].astype(np.int16)).max())
+        print(f"[4 routes] {route} ({fmt or 'woven'}): {w}x{h} -> {plan.W}x{plan.H} "
+              f"first frame (banks built, uploaded) in {setup:.3f} s; max|diff| vs fp64 "
+              f"oracle {d} LSB; launches {counts}")
+        require(d <= TOL_LSB, f"{route} is {d} LSB from the oracle")
+        for kid, n in counts.items():
+            require((n > 0) == (kid in runs),
+                    f"{route}: {kid} launched {n} times, expected {'some' if kid in runs else 'none'}")
+            kernels[kid]["launches"] += n
+    for kid, k in kernels.items():
+        print(f"[4 routes] {kid} {k['name']} launches over the routes: {k['launches']}")
 
-    # 5. the CLI on the samples
+    # 5. the CLI on the samples, the golden PNGs and a non-aligned frame
     out_dir = os.path.join(ROOT, "vkresample_tpu_torch", "build", "smoke")
     os.makedirs(out_dir, exist_ok=True)
     samples = os.path.join(ROOT, "samples")
-    for name, extra in (("test_1920x1080.png", ["-p", "2"]), ("test_256x128.png", [])):
-        out_png = os.path.join(out_dir, "cli_" + name)
-        cmd = [sys.executable, "-m", "vkresample_tpu_torch", "-i",
-               os.path.join(samples, name), "-o", out_png, "-u", "2",
+    na = os.path.join(out_dir, "nonaligned_600x400.png")
+    write_png(na, np.random.default_rng(SEED).integers(0, 256, (400, 600, C), np.uint8))
+    runs = [
+        ("1920x1080 -u 2 -p 2", os.path.join(samples, "test_1920x1080.png"), ["-u", "2", "-p", "2"]),
+        ("256x128 -u 2", os.path.join(samples, "test_256x128.png"), ["-u", "2"]),
+        ("256x128 -u 1.5", os.path.join(samples, "test_256x128.png"), ["-u", "1.5"]),
+        ("600x400 -u 2 -p 2", na, ["-u", "2", "-p", "2"]),
+    ]
+    outs = {}
+    for label, src, extra in runs:
+        outs[label] = os.path.join(out_dir, "cli_" + label.replace(" ", "_") + ".png")
+        cmd = [sys.executable, "-m", "vkresample_tpu_torch", "-i", src, "-o", outs[label],
                *extra, "-validate"]
         proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
         for line in proc.stdout.splitlines():
-            print(f"[5 cli] {line}")
-        require(proc.returncode == 0,
-                f"CLI on {name} exited {proc.returncode}: {proc.stderr[-2000:]}")
-    got = read_png(os.path.join(out_dir, "cli_test_256x128.png"))
-    gold = read_png(os.path.join(samples, "golden_256x128_x2.png"))
-    d = int(np.abs(got.astype(np.int16) - gold.astype(np.int16)).max())
-    print(f"[5 cli] 256x128 x2 vs golden: max|diff| {d} LSB")
-    require(got.shape == gold.shape and d <= TOL_LSB, "CLI output differs from the golden PNG")
+            print(f"[5 cli] {label}: {line}")
+        require(proc.returncode == 0 and "(tol 1) OK" in proc.stdout,
+                f"CLI {label} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    require(read_png(outs["600x400 -u 2 -p 2"]).shape == (800, 1200, C),
+            "CLI output of the non-aligned frame has the wrong shape")
+    for label, golden in (("256x128 -u 2", "golden_256x128_x2.png"),
+                          ("256x128 -u 1.5", "golden_256x128_x1.5.png")):
+        got, gold = read_png(outs[label]), read_png(os.path.join(samples, golden))
+        require(got.shape == gold.shape, f"CLI {label}: shape {got.shape} vs golden {gold.shape}")
+        d = int(np.abs(got.astype(np.int16) - gold.astype(np.int16)).max())
+        print(f"[5 cli] {label} vs {golden}: max|diff| {d} LSB")
+        require(d <= TOL_LSB, f"CLI {label} differs from {golden}")
 
     # 6. times, on this card
-    x = torch.from_numpy(img).to(dev)
-    for mode, fn in fns.items():
+    for route, fn in fns.items():
+        (h, w), u = ROUTES[route][:2]
+        x = torch.from_numpy(imgs[(h, w)]).to(dev)
         _, ms = time_amortized(fn, (x,), 20, dev)
-        print(f"[6 times] slice {mode} {w}x{h} -> {2 * w}x{2 * h}: "
-              f"{ms:.4f} ms/frame (-n 20, CUDA events) on {card}")
-    base = [torch.rand((C,) + FLAGSHIP, generator=gen, device=dev) * 1.3 - 0.1 for _ in range(4)]
-    for name, k in kernels.items():
-        for planes in ([to_i16_storage(p) for p in base], base):
-            ms = cuda_ms(lambda: k["fn"](*planes, 0.2), 50)
-            plain_ms = cuda_ms(lambda: k["plain"](*planes, 0.2), 10)
-            print(f"[6 times] {name} {(C,) + FLAGSHIP} {planes[0].dtype}: kernel "
+        print(f"[6 times] route {route} {w}x{h} x{u}: {ms:.4f} ms/frame "
+              f"(-n 20, CUDA events) on {card}")
+    for kid, k in kernels.items():
+        base = pre_cas(k["shapes"][0], k["n_in"])
+        for ins in ([to_i16_storage(p) for p in base], base):
+            ms = cuda_ms(lambda: k["fn"](*ins, 0.2), 50)
+            plain_ms = cuda_ms(lambda: k["plain"](*ins, 0.2), 10)
+            print(f"[6 times] {kid} {k['name']} {k['shapes'][0]} {ins[0].dtype}: kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
             k.setdefault("ms", ms)
             k.setdefault("plain_ms", plain_ms)
 
     print(json.dumps({"kernels": [
-        {"name": name} | {key: k[key] for key in (
-            "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms")}
-        for name, k in kernels.items()
+        {"name": k["name"], "route": "cuda"} | {key: k[key] for key in (
+            "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")}
+        for k in kernels.values()
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Port u=2 banks and r2c_quad against the JAX package (CPU).
+"""Port row-split banks and r2c_quad against the JAX package (CPU).
 
 The JAX side runs vkresample_tpu.fft.dense.r2c_quad at Precision.HIGHEST,
 which takes its float32 GEMMs (the int8 digit route is off at HIGHEST).
@@ -45,11 +45,14 @@ def _own_banks(h, w):
 
 @pytest.mark.parametrize("h,w", SHAPES + [(48, 256)])
 def test_f64_banks_match_jax(h, w):
-    """alpha_odd, Ymat_ns, Y1n and beta equal the JAX f64 banks to 1e-12
-    (alpha_odd against the odd columns of JAX's /255-folded alpha)."""
+    """alpha, alpha_odd, Ymat_ns, Y1n and beta equal the JAX f64 banks to
+    1e-12 (alpha against JAX's /255-folded alpha, which its f64 bank set
+    keeps whole in alpha_hi; alpha_odd against its odd columns)."""
     jb = jdense.r2c_rows_banks(JPlan(h=h, w=w, upscale=2.0), "float64")
     tb = dense.r2c_rows_banks(UpscalePlan(h=h, w=w, upscale=2.0), "float64")
-    assert set(tb) == {"alpha_odd", "Ymat_ns", "Y1n", "beta"}
+    assert set(tb) == {"alpha", "alpha_odd", "Ymat_ns", "Y1n", "beta"}
+    assert not np.asarray(jb["alpha_lo"]).any()
+    np.testing.assert_allclose(tb["alpha"], jb["alpha_hi"], rtol=0, atol=1e-12)
     np.testing.assert_allclose(
         tb["alpha_odd"], np.asarray(jb["alpha_hi"], np.float64)[:, 1::2],
         rtol=0, atol=1e-12,
@@ -59,13 +62,22 @@ def test_f64_banks_match_jax(h, w):
         np.testing.assert_allclose(tb[key], jb[key], rtol=0, atol=1e-12)
 
 
-def test_banks_reject_other_geometries():
-    for plan in (
-        UpscalePlan(h=64, w=128, upscale=3.0),
-        UpscalePlan(h=64, w=128, upscale=1.5),
-        UpscalePlan(h=64, w=128, upscale=2.0, r2c=False),
-    ):
-        with pytest.raises(ValueError, match="u=2 row-split"):
+@pytest.mark.parametrize(
+    "kw,rows",
+    [
+        (dict(upscale=3.0), True),  # every integer u >= 2 has row-split banks now
+        (dict(upscale=1.5), False),  # fractional: the chain banks serve it
+        (dict(upscale=2.0, r2c=False), False),  # c2c: neither (ROADMAP item 6)
+    ],
+)
+def test_banks_reject_other_geometries(kw, rows):
+    """The row-split banks take exactly the integer u >= 2 r2c geometries
+    (u=3 has no alpha_odd: that key serves the u=2 quad route only)."""
+    plan = UpscalePlan(h=64, w=128, **kw)
+    if rows:
+        assert set(dense.r2c_rows_banks(plan)) == {"alpha", "Ymat_ns", "Y1n", "beta"}
+    else:
+        with pytest.raises(ValueError, match="integer u >= 2 r2c"):
             dense.r2c_rows_banks(plan)
 
 
@@ -146,14 +158,15 @@ def test_i16_codec_matches_jax():
 def test_banks_from_jax_maps_keys_and_split():
     _, jbanks, _ = _setup(64, 128, seed=1)
     tb = banks_from_jax(jbanks)
-    assert set(tb) == {"alpha_odd", "Ymat_ns", "Y1n", "beta"}
+    assert set(tb) == {"alpha", "alpha_odd", "Ymat_ns", "Y1n", "beta"}
     assert all(t.dtype == torch.float32 for t in tb.values())
-    hi = np.asarray(jbanks["alpha_odd_hi"]).astype(np.float64)
-    lo = np.asarray(jbanks["alpha_odd_lo"]).astype(np.float64)
-    np.testing.assert_array_equal(tb["alpha_odd"].numpy().astype(np.float64), hi + lo)
-    # the split is within 2^-17 (relative to the bank's scale) of the f64 bank
-    own = dense.r2c_rows_banks(UpscalePlan(h=64, w=128, upscale=2.0))["alpha_odd"]
-    assert np.abs(hi + lo - own).max() <= np.abs(own).max() * 2.0 ** -17
+    own = dense.r2c_rows_banks(UpscalePlan(h=64, w=128, upscale=2.0))
+    for key in ("alpha", "alpha_odd"):
+        hi = np.asarray(jbanks[key + "_hi"]).astype(np.float64)
+        lo = np.asarray(jbanks[key + "_lo"]).astype(np.float64)
+        np.testing.assert_array_equal(tb[key].numpy().astype(np.float64), hi + lo)
+        # the split is within 2^-17 (relative to the bank's scale) of the f64 bank
+        assert np.abs(hi + lo - own[key]).max() <= np.abs(own[key]).max() * 2.0 ** -17
 
 
 def test_half_precision_banks_are_jax_half_banks_minus_int8():
@@ -163,4 +176,4 @@ def test_half_precision_banks_are_jax_half_banks_minus_int8():
         JPlan(h=64, w=128, upscale=2.0, precision=JPrecision.HALF, engine=JEngine.MXU)
     )
     assert "xq_d1" in jb
-    assert set(banks_from_jax(jb)) == {"alpha_odd", "Ymat_ns", "Y1n", "beta"}
+    assert set(banks_from_jax(jb)) == {"alpha", "alpha_odd", "Ymat_ns", "Y1n", "beta"}

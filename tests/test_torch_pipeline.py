@@ -1,6 +1,7 @@
-"""The port's u=2 slice end to end (CPU, plain versions) against the fp64
+"""The port's u=2 routes end to end (CPU, plain versions) against the fp64
 oracle, the JAX package's composed quad route and the golden sample; its
-routing, CLI, PNG codecs and import hygiene."""
+routing, CLI, PNG codecs and import hygiene.  The other factors and the
+reference tier are in test_torch_routes.py."""
 import os
 import subprocess
 import sys
@@ -9,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from vkresample_tpu_torch import Precision, UpscalePlan, build_upscale, upscale
+from vkresample_tpu_torch import Engine, Precision, UpscalePlan, build_upscale, upscale
+from vkresample_tpu_torch.fft import dense
 from vkresample_tpu_torch.io import png
+from vkresample_tpu_torch.ops import cas
+from vkresample_tpu_torch.ops.cas_cuda import cas_parity_planes_u2_reference
 from vkresample_tpu_torch.oracle import numpy_ref as toracle
 from vkresample_tpu_torch.pipeline import upscale as tpipe
 
@@ -31,8 +35,10 @@ def _maxdiff(a, b):
 @pytest.mark.parametrize("prec", PRECS)
 @pytest.mark.parametrize("h,w", SHAPES)
 def test_slice_matches_oracle(h, w, prec):
-    """Planes (the CLI call) and the woven library output within 1 LSB of
-    the fp64 oracle, in SINGLE and HALF."""
+    """Quad planes (the CLI call) and the woven library output within 1 LSB
+    of the fp64 oracle, in SINGLE and HALF.  The woven output takes the
+    rows route (as in the JAX package): it equals the rows-parity planes
+    woven on the host."""
     img = _img(h, w, seed=h + w + int(prec))
     plan = UpscalePlan(h=h, w=w, upscale=2.0, precision=prec)
     want = toracle.upscale_oracle(img, plan)
@@ -43,7 +49,14 @@ def test_slice_matches_oracle(h, w, prec):
     assert _maxdiff(np.moveaxis(woven, 0, -1), want) <= 1
     out = upscale(img, 2.0, precision=prec, device="cpu")
     assert out.shape == (2 * h, 2 * w, 3) and out.dtype == torch.uint8
-    np.testing.assert_array_equal(out.numpy(), np.moveaxis(woven, 0, -1))
+    assert _maxdiff(out.numpy(), want) <= 1
+    codec = (dict(store=cas.to_i16_storage, load=cas.from_i16_storage)
+             if prec is Precision.HALF else {})
+    banks = tpipe.make_device_banks(plan, Engine.MXU, "cpu", planes_out=False)
+    U, O = dense.r2c_rows(torch.from_numpy(np.moveaxis(img, -1, 0).copy()), banks, **codec)
+    E, D = cas_parity_planes_u2_reference(U, O, plan.sharpen)
+    rows = np.stack([E.numpy(), D.numpy()], axis=2).reshape(3, 2 * h, 2 * w)
+    np.testing.assert_array_equal(out.numpy(), np.moveaxis(rows, 0, -1))
 
 
 @pytest.mark.parametrize("prec", PRECS)
@@ -106,15 +119,24 @@ def test_single_channel_and_plan_cache():
     [
         (dict(h=64, w=128, upscale=2.0, precision=Precision.DOUBLE), "item 6"),
         (dict(h=64, w=128, upscale=2.0, r2c=False), "item 6"),
-        (dict(h=64, w=128, upscale=3.0), "item 6"),
-        (dict(h=64, w=128, upscale=1.0), "item 6"),
-        (dict(h=64, w=128, upscale=1.5), "item 6"),
-        (dict(h=64, w=96, upscale=2.0), "item 5"),
+        # ported since: they run, within 1 LSB of the oracle
+        (dict(h=64, w=128, upscale=3.0), None),
+        (dict(h=64, w=128, upscale=1.0), None),
+        (dict(h=64, w=128, upscale=1.5), None),
+        (dict(h=64, w=96, upscale=2.0), "rows"),
         (dict(h=64, w=8192, upscale=2.0), "item 8"),
     ],
 )
 def test_out_of_slice_plans_raise(kw, item):
+    """fp64, c2c and axes over the dense cap raise naming their ROADMAP.md
+    item; the other plans run (item = their planes_format)."""
     plan = UpscalePlan(**kw)
+    if item is None or item == "rows":
+        assert tpipe.planes_format(plan) == item
+        img = _img(plan.h, plan.w, seed=plan.w + plan.H)
+        got = build_upscale(plan, "cpu")(img)
+        assert _maxdiff(got.numpy(), toracle.upscale_oracle(img, plan)) <= 1
+        return
     assert tpipe.planes_format(plan) is None
     assert not tpipe.parity_planes_supported(plan)
     with pytest.raises(NotImplementedError, match=item):
@@ -150,21 +172,33 @@ def test_cli_validate_and_golden(tmp_path):
     assert _maxdiff(png.read_png(out), gold) <= 1
 
 
-def test_cli_errors_exit_1(tmp_path):
+@pytest.mark.parametrize(
+    "args,rc,msg",
+    [
+        # -u 1.5 is ported since: it runs and validates
+        (("-u", "1.5", "-validate"), 0, "maxdiff="),
+        (("-u", "2", "-p", "1"), 1, "not ported yet (ROADMAP.md modules item 6)"),
+        (("-u", "2", "-c2c"), 1, "-c2c: the c2c spectrum path"),
+        (("-ifolder", "x", "-u", "2"), 1, "not ported yet"),
+        (("-u", "2", "-engine"), 1, "No engine"),
+        (("-p",), 1, "No precision"),
+    ],
+)
+def test_cli_errors_exit_1(tmp_path, args, rc, msg):
+    """Plans and flags outside the port exit 1 with a message and write no
+    file; the missing input and -h cases ride on the first case."""
     sample = os.path.join(SAMPLES, "test_256x128.png")
-    for args, msg in [
-        (("-i", sample, "-o", str(tmp_path / "a.png"), "-u", "1.5"), "not ported yet"),
-        (("-i", sample, "-o", str(tmp_path / "b.png"), "-u", "2", "-p", "1"), "not ported yet"),
-        (("-ifolder", "x", "-u", "2"), "not ported yet"),
-        (("-i", str(tmp_path / "missing.png"), "-u", "2"), "Image not found"),
-        (("-i", sample, "-p"), "No precision"),
-    ]:
-        proc = _cli(*args)
-        assert proc.returncode == 1, (args, proc.stdout, proc.stderr)
-        assert msg in proc.stdout, (args, proc.stdout)
-    assert not (tmp_path / "a.png").exists()
-    proc = _cli("-h")
-    assert proc.returncode == 0 and "-validate" in proc.stdout
+    out = tmp_path / "a.png"
+    full = args if args[0] == "-ifolder" else ("-i", sample, "-o", str(out)) + args
+    proc = _cli(*full)
+    assert proc.returncode == rc, (args, proc.stdout, proc.stderr)
+    assert msg in proc.stdout, (args, proc.stdout)
+    assert out.exists() == (rc == 0)
+    if rc == 0:
+        proc = _cli("-i", str(tmp_path / "missing.png"), "-u", "2")
+        assert proc.returncode == 1 and "Image not found" in proc.stdout
+        proc = _cli("-h")
+        assert proc.returncode == 0 and "-validate" in proc.stdout and "-engine" in proc.stdout
 
 
 def test_slice_runs_without_jax():

@@ -5,19 +5,21 @@ The JAX package ``vkresample_tpu`` stays beside it as the reference.  This
 package imports torch and numpy only, never jax or vkresample_tpu, and
 builds its CUDA kernels (csrc/) with nvcc at first launch, never at import.
 
-Ported slice: the u=2 R2C upscale with CAS sharpen in fp32 (-p 0) and
-half storage (-p 2), uint8 image -> uint8 parity planes -> PNG, widths a
-multiple of 128, every axis <= 8192.  Other plans raise NotImplementedError
-naming their ROADMAP.md item.
+Ported: the R2C upscale with CAS sharpen in fp32 (-p 0) and half storage
+(-p 2) for every factor (integer and fractional) with every axis <= 8192,
+on the dense GEMM engine (quad and rows parity routes at u=2, the rows
+route at integer u >= 3, the dense chain otherwise) and on the torch.fft
+reference tier (-engine xla).  fp64, c2c and larger axes raise
+NotImplementedError naming their ROADMAP.md item.
 
 Public API:
-    upscale(img, upscale, precision=..., sharpen=...) -> (H, W, C) uint8
-    build_upscale(plan, device, planes_out=...) -> per-frame function
-    UpscalePlan, Precision
+    upscale(img, upscale, precision=..., sharpen=..., engine=...) -> (H, W, C) uint8
+    build_upscale(plan, device, planes_out=..., planar_out=...) -> per-frame function
+    UpscalePlan, Precision, Engine
 """
 
 __version__ = "0.1.0"
 
-from .core.config import Precision  # noqa: F401
+from .core.config import Engine, Precision  # noqa: F401
 from .core.plan import UpscalePlan  # noqa: F401
 from .pipeline.upscale import build_upscale, upscale  # noqa: F401

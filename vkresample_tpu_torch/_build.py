@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (sm_90a) into one
-shared library with a plain C interface, which is loaded with ctypes.  The
-library lands in ``vkresample_tpu_torch/build/`` under a name derived from
-the sources' content and the flags, so an edited source is never shadowed
-by a stale binary and a second process reuses the first one's build.
-Nothing here runs at import time: the first kernel launch builds.
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (sm_90a), one
+``nvcc`` per source, all started together, and the objects are linked into
+one shared library with a plain C interface, which is loaded with ctypes.
+The library lands in ``vkresample_tpu_torch/build/`` under a name derived
+from the content of the sources, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source is never shadowed by a stale binary and a
+second process reuses the first one's build.  Nothing here runs at import
+time: the first kernel launch builds.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -52,10 +54,31 @@ def _sources():
 
 def library_path() -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for src in _sources() + headers:
         with open(src, "rb") as f:
             digest.update(os.path.basename(src).encode() + f.read())
     return os.path.join(BUILD_DIR, f"libvkr_kernels_{digest.hexdigest()[:16]}.so")
+
+
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise with the output of the first
+    that fails.  Every process is waited for before returning."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in cmds
+    ]
+    failed = None
+    for cmd, proc in zip(cmds, procs):
+        try:
+            log, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"{' '.join(cmd)} failed ({proc.returncode}):\n{log}"
+    if failed is not None:
+        raise RuntimeError(failed)
 
 
 def build_library() -> str:
@@ -68,15 +91,17 @@ def build_library() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-        capture_output=True, text=True, timeout=600,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                  for src, obj in zip(_sources(), objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, out)
     last_build.update(compiled=True, seconds=time.perf_counter() - t0, path=out)
     return out
@@ -88,11 +113,19 @@ def load_kernels() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build_library())
-            lib.vkr_cas_quad_u2.restype = ctypes.c_int
-            lib.vkr_cas_quad_u2.argtypes = (
-                [ctypes.c_void_p] * 8
-                + [ctypes.c_int] * 4
-                + [ctypes.c_float, ctypes.c_void_p]
-            )
+            # entry point -> (tensor pointers, int arguments); every entry
+            # then takes the sharpen factor and the stream
+            for name, n_ptr, n_int in (
+                ("vkr_cas_quad_u2", 8, 4),      # P00..P11, O00..O11; C, h, Wh, is_i16
+                ("vkr_cas_parity_u2", 4, 4),    # U, O, E, D; C, h, W, is_i16
+                ("vkr_cas_woven", 2, 4),        # v, out; C, H, W, is_i16
+            ):
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = (
+                    [ctypes.c_void_p] * n_ptr
+                    + [ctypes.c_int] * n_int
+                    + [ctypes.c_float, ctypes.c_void_p]
+                )
             _lib = lib
         return _lib

@@ -46,8 +46,9 @@ class Precision(enum.IntEnum):
 
 class Engine(enum.Enum):
     """FFT execution tier, flag-compatible with the JAX package's
-    ``-engine``.  The port's slice runs the dense GEMM form (MXU's
-    counterpart) only."""
+    ``-engine``.  MXU is the dense GEMM tier (fft/mxu_pipeline.py), XLA
+    the torch.fft reference tier; AUTO resolves to MXU where the plan
+    allows it."""
 
     AUTO = "auto"
     XLA = "xla"

@@ -34,9 +34,8 @@
 // DMA variants have no counterpart here.  Each input element is read from
 // device memory ~1.2 times (halo), each output written once.  The blend is
 // written with explicit round-to-nearest intrinsics (no FMA contraction) so
-// it rounds like the plain PyTorch version op for op.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// it rounds like the plain PyTorch version op for op (cas_common.cuh).
+#include "cas_common.cuh"
 
 namespace {
 
@@ -44,39 +43,6 @@ constexpr int kTX = 32;             // plane columns per block
 constexpr int kTY = 8;              // plane rows per block
 constexpr int kSW = 2 * kTX + 2;    // woven tile width incl. halo
 constexpr int kSH = 2 * kTY + 2;    // woven tile height incl. halo
-
-__device__ __forceinline__ float clip_len(float v) { return fminf(fabsf(v), 1.0f); }
-__device__ __forceinline__ float clip_len(int16_t v) {
-  return fminf(fabsf(__fmul_rn((float)v, 1.0f / 16384.0f)), 1.0f);
-}
-
-__device__ __forceinline__ uint8_t cas_pixel(
-    float nw, float n, float ne, float w, float c, float e,
-    float sw, float s, float se, float sharpen) {
-  const float xmin = fminf(w, e), xmax = fmaxf(w, e);
-  const float min_cross = fminf(fminf(n, s), fminf(c, xmin));
-  const float max_cross = fmaxf(fmaxf(n, s), fmaxf(c, xmax));
-  const float cmin = fminf(fminf(nw, ne), fminf(sw, se));
-  const float cmax = fmaxf(fmaxf(nw, ne), fmaxf(sw, se));
-  const float min_all = fminf(min_cross, cmin);
-  const float max_all = fmaxf(max_cross, cmax);
-  const float minlen = __fmul_rn(0.5f, __fadd_rn(min_cross, min_all));
-  const float maxlen = __fmul_rn(0.5f, __fadd_rn(max_cross, max_all));
-  // _cas_blend: sqrt(num/den) as num * rsqrt(num*den), floored so num == 0
-  // gives 0 and not 0 * inf
-  const float a = minlen, b = __fsub_rn(1.0f, minlen);
-  const float cq = __fsub_rn(1.0f, maxlen), d = maxlen;
-  const bool pred = __fmul_rn(a, d) < __fmul_rn(cq, b);
-  const float num = pred ? a : cq;
-  const float den = pred ? b : d;
-  const float sc = __fmul_rn(__fmul_rn(-sharpen, num),
-                             rsqrtf(fmaxf(__fmul_rn(num, den), 1e-30f)));
-  const float nsum = __fadd_rn(__fadd_rn(n, s), __fadd_rn(w, e));
-  const float out = __fdiv_rn(__fadd_rn(c, __fmul_rn(sc, nsum)),
-                              __fadd_rn(1.0f, __fmul_rn(4.0f, sc)));
-  const float q = fminf(fmaxf(__fmul_rn(out, 255.0f), 0.0f), 255.0f);
-  return (uint8_t)(int)q;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kTX * kTY)
@@ -110,10 +76,7 @@ cas_quad_kernel(const T* __restrict__ p00, const T* __restrict__ p01,
 #pragma unroll
     for (int rx = 0; rx < 2; ++rx) {
       const int r = 2 * threadIdx.y + ry + 1, q = 2 * threadIdx.x + rx + 1;
-      dst[ry][rx][o] = cas_pixel(
-          tile[r - 1][q - 1], tile[r - 1][q], tile[r - 1][q + 1],
-          tile[r][q - 1], tile[r][q], tile[r][q + 1],
-          tile[r + 1][q - 1], tile[r + 1][q], tile[r + 1][q + 1], sharpen);
+      dst[ry][rx][o] = cas_at<kSW>(tile, r, q, sharpen);
     }
   }
 }

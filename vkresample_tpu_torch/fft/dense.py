@@ -1,5 +1,5 @@
-"""Dense DFT engine, u=2 quad-parity subset (counterpart of
-vkresample_tpu/fft/dense.py).
+"""Dense DFT engine (counterpart of vkresample_tpu/fft/dense.py): the
+collapsed r2c chain and its row-split and quad-parity fast paths.
 
 The r2c pipeline (R2C_x -> fwd_y -> zero-band inv_y -> C2R_x) is a linear
 map real^(h,w) -> real^(H,W).  Grouped by axis it collapses into two GEMMs
@@ -13,11 +13,19 @@ imaginary parts of the composed y round trip.  Iy is rank <= 1 (only the
 relocated y-Nyquist bin, which the shift moves whole, VkResample.cpp:
 521-525, is unpaired), so it is factored and carried as a correction.
 
-For u=2 the sample output rows and columns are exact input samples (up to a
-rank-1 x-Nyquist correction), so ``r2c_quad`` needs one GEMM over the odd
-output columns and one y GEMM over the odd output rows, and emits the four
-output parity planes directly.  Banks are built once per geometry in f64
-numpy; the GEMMs run in float32 on the device.
+Three forms, by geometry:
+
+- ``r2c_chain`` (any factor, the fractional ones and u=1 included): the two
+  GEMMs above on the normalized image.
+- ``r2c_rows`` (integer u >= 2): sample output rows are exact x-pass rows,
+  so the y GEMM only produces the (u-1)/u non-sample rows.
+- ``r2c_quad`` (u=2): sample output columns are exact too (up to a rank-1
+  x-Nyquist correction), so the x GEMM only produces the odd columns, and
+  the four output parity planes come out directly.
+
+Banks are built once per geometry in f64 numpy; the GEMMs run in float32
+on the device (callers keep TF32 off, pipeline/upscale.py).  The JAX
+package's bf16 hi|lo and int8 digit GEMM forms are not ported.
 """
 from __future__ import annotations
 
@@ -133,19 +141,22 @@ def r2c_rows_supported(plan) -> bool:
 
 
 def r2c_rows_banks(plan, dtype: str = "float64") -> dict:
-    """Numpy banks of the u=2 quad-parity route (the u=2 part of the JAX
-    package's r2c_rows_banks):
+    """Numpy banks of the row-split route, integer u >= 2 (the JAX
+    package's r2c_rows_banks in f32 form):
 
-      alpha_odd (w, W/2): odd output columns of the x bank, /255 folded in
-      Ymat_ns   (h + r, h): y bank restricted to the odd (non-sample) output
+      alpha     (w, W): the x bank, /255 folded in (JAX splits it into bf16
+                alpha_hi + alpha_lo)
+      Ymat_ns   (h + r, h(u-1)): y bank restricted to the non-sample output
                 rows; rows [h, h+r) are the rank-r y-Nyquist factor Yc
       Y1n (h, r), beta (w, W): the factor's row side (/255 folded) and the
                 x quadrature bank, present when r > 0
+      alpha_odd (w, W/2), u=2 only: the odd output columns of alpha, for
+                the quad route
 
     Built in f64 and cast to ``dtype``."""
     u = plan.integer_upscale
-    if u != 2 or not r2c_rows_supported(plan):
-        raise ValueError(f"quad-parity banks need the u=2 row-split geometry: {plan}")
+    if not r2c_rows_supported(plan):
+        raise ValueError(f"row-split banks need an integer u >= 2 r2c geometry: {plan}")
     h, w, H, W = plan.h, plan.w, plan.H, plan.W
     alpha, beta, Ry, Y1, Y2 = _r2c_chain_banks(
         h, w, H, W,
@@ -163,14 +174,88 @@ def r2c_rows_banks(plan, dtype: str = "float64") -> dict:
         Ymat.reshape(-1, h, u)[:, :, 1:].reshape(-1, h * (u - 1))
     )
     # fold the /255 uint8 normalization (VkResample.cpp:1644) into the x bank
-    banks = {
-        "alpha_odd": np.ascontiguousarray(alpha[:, 1::2] / 255.0).astype(dtype),
-        "Ymat_ns": Ymat_ns.astype(dtype),
-    }
+    banks = {"alpha": (alpha / 255.0).astype(dtype), "Ymat_ns": Ymat_ns.astype(dtype)}
+    if u == 2:
+        banks["alpha_odd"] = np.ascontiguousarray(alpha[:, 1::2] / 255.0).astype(dtype)
     if Y1.shape[1]:
         banks["Y1n"] = (Y1 / 255.0).astype(dtype)
         banks["beta"] = beta.astype(dtype)
     return banks
+
+
+def r2c_chain_banks(plan, dtype: str = "float64") -> dict:
+    """Numpy banks of the collapsed r2c chain, any factor: alpha (w, W),
+    Ymat = [Ry; Y2] (h + r, H) and, when r > 0, Y1 (h, r) and beta (w, W).
+    Unlike the row-split banks they do not fold the /255 normalization:
+    r2c_chain takes the normalized image."""
+    alpha, beta, Ry, Y1, Y2 = _r2c_chain_banks(
+        plan.h, plan.w, plan.H, plan.W,
+        plan.kept_lo_y, plan.kept_hi_y, plan.kept_lo_x, plan.kept_hi_x > 0,
+        dtype,
+    )
+    banks = {"alpha": alpha, "Ymat": np.concatenate([Ry, Y2], axis=0)}
+    if Y1.shape[1]:
+        banks["Y1"] = Y1
+        banks["beta"] = beta
+    return banks
+
+
+def r2c_chain(x: torch.Tensor, banks: dict) -> torch.Tensor:
+    """(..., h, w) normalized image -> (..., H, W) pre-CAS image in CAS
+    units, via the collapsed two-GEMM chain."""
+    U = torch.matmul(x, banks["alpha"])
+    if "Y1" in banks:
+        tcorr = torch.matmul(banks["Y1"].transpose(0, 1), x)  # (..., r, w)
+        U = torch.cat([U, torch.matmul(tcorr, banks["beta"])], dim=-2)
+    return torch.matmul(banks["Ymat"].transpose(0, 1), U)
+
+
+def _x_nyq_corr(x_raw: torch.Tensor, banks: dict):
+    """Rank-r y-Nyquist correction rows T2 (..., r, W) of the split paths,
+    or None when the plan has no imaginary y residue."""
+    if "Y1n" not in banks:
+        return None
+    tcorr = torch.matmul(banks["Y1n"].transpose(0, 1), x_raw)  # (..., r, w)
+    return torch.matmul(tcorr, banks["beta"])
+
+
+def r2c_x_only(x_raw: torch.Tensor, banks: dict):
+    """x pass of the row-split path.  x_raw (..., h, w) holds RAW uint8
+    values 0..255 (uint8 or float; /255 is folded into the banks).
+    Returns (U, T2): U (..., h, W), the x-pass output, IS the sample output
+    rows; T2 (..., r, W) the y-Nyquist correction rows (None when r = 0)."""
+    xf = x_raw.to(banks["alpha"].dtype)
+    return torch.matmul(xf, banks["alpha"]), _x_nyq_corr(xf, banks)
+
+
+def r2c_rows(x_raw: torch.Tensor, banks: dict, store=None, load=None):
+    """Row-split path, integer u >= 2: r2c_x_only plus the non-sample y
+    GEMM.  Returns (U, O): U (..., h, W) the sample output rows, O
+    (..., h(u-1), W) the non-sample rows, O[t(u-1)+k] = out[ut+k+1].
+
+    store/load: optional pre-CAS storage codec (int16 Q2.14 in half mode).
+    When given, U and O are returned stored AND the y GEMM reads the loaded
+    (dequantized) stored U, as the JAX route does (dense.py:818-824)."""
+    h = x_raw.shape[-2]
+    U, T2 = r2c_x_only(x_raw, banks)
+    if store is None:
+        Us, Um = U, U
+    else:
+        Us = store(U)
+        Um = load(Us)
+    O = torch.matmul(banks["Ymat_ns"][:h].transpose(0, 1), Um)
+    if T2 is not None:
+        O = O + torch.matmul(banks["Ymat_ns"][h:].transpose(0, 1), T2)
+    return (Us, O) if store is None else (Us, store(O))
+
+
+def weave_rows(U: torch.Tensor, O: torch.Tensor, u: int) -> torch.Tensor:
+    """Interleave sample rows U (..., h, W) with the non-sample row groups
+    O (..., h(u-1), W) -> (..., uh, W)."""
+    h, W = U.shape[-2:]
+    O4 = O.reshape(O.shape[:-2] + (h, u - 1, W))
+    out = torch.cat([U[..., :, None, :], O4], dim=-2)
+    return out.reshape(out.shape[:-3] + (u * h, W))
 
 
 def r2c_quad(x_raw: torch.Tensor, banks: dict, store=None, load=None):

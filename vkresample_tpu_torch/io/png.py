@@ -4,8 +4,9 @@ Two codecs, same pixel semantics (decode forces 8-bit RGB):
 
 - native: the JAX package's C++ codec, vkresample_tpu/native/pngio.cpp,
   compiled unchanged with g++ against libpng into vkresample_tpu_torch/
-  build/ and bound with ctypes.  Its quad-parity encoder weaves the four
-  uint8 planes inside its row loop.
+  build/ and bound with ctypes.  Its planar encoders interleave the
+  channels, and the parity ones weave the uint8 planes, inside their row
+  loops.
 - zlib: a small stdlib PNG reader and writer for 8-bit gray, gray+alpha,
   RGB and RGBA, non-interlaced, for machines without libpng.  Planes are
   woven on the host first.
@@ -85,11 +86,18 @@ def _native():
                     ctypes.c_char_p, u8p, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int,
                 ]
-                lib.vkr_png_encode_planar_parity4.restype = ctypes.c_int
-                lib.vkr_png_encode_planar_parity4.argtypes = (
-                    [ctypes.c_char_p] + [u8p] * 4
-                    + [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-                )
+                # planar encoders: path, n planes, width, height, level
+                for name, n in (
+                    ("vkr_png_encode_planar", 3),
+                    ("vkr_png_encode_planar_parity", 2),
+                    ("vkr_png_encode_planar_parity4", 4),
+                ):
+                    fn = getattr(lib, name)
+                    fn.restype = ctypes.c_int
+                    fn.argtypes = (
+                        [ctypes.c_char_p] + [u8p] * n
+                        + [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+                    )
                 lib.vkr_free.restype = None
                 lib.vkr_free.argtypes = [ctypes.c_void_p]
                 _lib = lib
@@ -268,24 +276,63 @@ def weave4_host(p00, p01, p10, p11) -> np.ndarray:
     return out
 
 
+def _encode_planes(entry: str, path: str, planes, width: int, height: int,
+                   compression_level: int) -> bool:
+    """Encode with the native planar encoder `entry`; False when the zlib
+    codec is in use (the caller weaves on the host)."""
+    lib = _native()
+    if lib is None:
+        return False
+    rc = getattr(lib, entry)(
+        os.fsencode(path),
+        *[p.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)) for p in planes],
+        width, height, compression_level,
+    )
+    if rc != 0:
+        raise OSError(_encode_err(rc, path))
+    return True
+
+
+def _u8_planes(planes, n: int, what: str):
+    ps = [np.ascontiguousarray(p, np.uint8) for p in planes]
+    if len(ps) != n or any(
+        p.shape != ps[0].shape or p.ndim != 3 or p.shape[0] != 3 for p in ps
+    ):
+        raise ValueError(f"expected {what}")
+    return ps
+
+
+def write_png_planar(path: str, img: np.ndarray, compression_level: int = 6) -> None:
+    """Encode a PLANAR (3, h, w) uint8 RGB image, the woven routes' device
+    layout.  The native codec interleaves the channels in its row loop."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[0] != 3:
+        raise ValueError(f"expected (3, h, w) uint8, got {img.shape}")
+    _, h, w = img.shape
+    if not _encode_planes("vkr_png_encode_planar", path, list(img), w, h,
+                          compression_level):
+        write_png(path, np.moveaxis(img, 0, -1), compression_level)
+
+
+def write_png_planar_parity(path: str, e: np.ndarray, d: np.ndarray,
+                            compression_level: int = 6) -> None:
+    """Encode from rows-parity planes: e (3, H/2, W) the even output rows,
+    d the odd ones.  The native codec weaves the rows in its row loop; the
+    zlib codec weaves on the host."""
+    e, d = _u8_planes((e, d), 2, "matching (3, h, w) uint8 planes e and d")
+    _, h2, w = e.shape
+    if not _encode_planes("vkr_png_encode_planar_parity", path, (e, d), w, 2 * h2,
+                          compression_level):
+        woven = np.stack([e, d], axis=2).reshape(3, 2 * h2, w)
+        write_png(path, np.moveaxis(woven, 0, -1), compression_level)
+
+
 def write_png_planar_parity4(path: str, planes, compression_level: int = 6) -> None:
     """Encode from quad-parity planes (p00, p01, p10, p11), each (3, H/2,
     W/2) uint8, p[output row parity][output col parity].  The native codec
     weaves both axes inside its row loop; the zlib codec weaves on the host."""
-    ps = [np.ascontiguousarray(p, np.uint8) for p in planes]
-    if len(ps) != 4 or any(
-        p.shape != ps[0].shape or p.ndim != 3 or p.shape[0] != 3 for p in ps
-    ):
-        raise ValueError("expected 4 matching (3, h, w) uint8 planes")
-    lib = _native()
+    ps = _u8_planes(planes, 4, "4 matching (3, h, w) uint8 planes")
     _, h2, wh = ps[0].shape
-    if lib is not None:
-        rc = lib.vkr_png_encode_planar_parity4(
-            os.fsencode(path),
-            *[p.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)) for p in ps],
-            2 * wh, 2 * h2, compression_level,
-        )
-        if rc != 0:
-            raise OSError(_encode_err(rc, path))
-        return
-    write_png(path, np.moveaxis(weave4_host(*ps), 0, -1), compression_level)
+    if not _encode_planes("vkr_png_encode_planar_parity4", path, ps, 2 * wh, 2 * h2,
+                          compression_level):
+        write_png(path, np.moveaxis(weave4_host(*ps), 0, -1), compression_level)

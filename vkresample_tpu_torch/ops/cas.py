@@ -8,7 +8,8 @@ neighbourhoods drives the adaptive sharpening weight
     scale = -s * sqrt(min(minl/(1-minl), (1-maxl)/maxl))
     out   = (c + scale * sum(cross)) / (1 + 4*scale)
 
-The fused quad-parity kernel of the u=2 route lives in ops/cas_cuda.py.
+The fused CAS + quantize kernels (quad, rows-parity, woven) and their plain
+versions live in ops/cas_cuda.py.
 """
 from __future__ import annotations
 

@@ -1,11 +1,22 @@
-"""Quad-parity fused CAS (u=2): the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Fused CAS + quantize kernels: their wrappers and plain PyTorch versions.
 
-Counterpart of vkresample_tpu/ops/cas_pallas.py::cas_parity4_planes_u2.
-Four pre-CAS parity planes P[ry][rx] (..., h, Wh), int16 Q2.14 or float32,
-are the woven image V[..., 2t+ry, 2s+rx] = P[ry][rx][..., t, s]; the output
-is the CAS + quantize of V, split back into four uint8 parity planes.  The
-kernel is csrc/cas_quad.cu; see its header for the design.
+Counterparts of vkresample_tpu/ops/cas_pallas.py:
+
+  K1 cas_parity4_planes_u2  quad-parity CAS (u=2 quad route)   csrc/cas_quad.cu
+  K2 cas_parity_planes_u2   rows-parity CAS (u=2 rows route)   csrc/cas_parity.cu
+  K3 cas_quantize           woven CAS (cas_quantize_pallas)    csrc/cas_woven.cu
+
+All three compute the same thing: the 3x3 clamp-to-edge CAS + quantize of
+a woven pre-CAS image, int16 Q2.14 or float32, to uint8.  K1 and K2 take
+that image as parity planes and return uint8 planes of the same layout, so
+the woven image never exists on the device.  One plain version,
+``cas_quantize_reference``, holds the arithmetic; K1's and K2's plain
+versions weave their planes, call it and split the result.  See each
+kernel source's header for its design.
+
+Each wrapper runs its kernel on a CUDA tensor (on the current stream; a
+launch error raises) and its plain version on a CPU tensor, and counts its
+kernel launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -17,20 +28,35 @@ from .cas import from_i16_storage
 _DTYPES = (torch.int16, torch.float32)
 
 
-def _check_planes(planes) -> None:
-    p0 = planes[0]
-    if p0.dtype not in _DTYPES:
-        raise TypeError(f"quad CAS takes int16 or float32 planes, got {p0.dtype}")
-    if p0.dim() < 2:
-        raise ValueError(f"quad CAS planes need (..., h, Wh), got {tuple(p0.shape)}")
-    for p in planes[1:]:
-        if p.device != p0.device or p.dtype != p0.dtype or p.shape != p0.shape:
+def _check(what: str, tensors) -> None:
+    t0 = tensors[0]
+    if t0.dtype not in _DTYPES:
+        raise TypeError(f"{what} takes int16 or float32 planes, got {t0.dtype}")
+    if t0.dim() < 2:
+        raise ValueError(f"{what} planes need (..., rows, cols), got {tuple(t0.shape)}")
+    for t in tensors[1:]:
+        if t.device != t0.device or t.dtype != t0.dtype or t.shape != t0.shape:
             raise ValueError(
-                "quad CAS planes must share device, dtype and shape: "
-                f"{[(str(q.device), q.dtype, tuple(q.shape)) for q in planes]}"
+                f"{what} planes must share device, dtype and shape: "
+                f"{[(str(q.device), q.dtype, tuple(q.shape)) for q in tensors]}"
             )
-    if any(not p.is_contiguous() for p in planes):
-        raise ValueError("quad CAS planes must be contiguous")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} planes must be contiguous")
+    if t0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {t0.device}")
+
+
+def _launch(entry: str, device, *args) -> None:
+    """Call the kernel library's C entry point on the current stream of
+    `device`; raise on a non-zero cudaError_t."""
+    from .._build import load_kernels
+
+    lib = load_kernels()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError_t {rc}")
 
 
 def _blend_u8(c, nsum, minlen, maxlen, sharpen: float) -> torch.Tensor:
@@ -46,24 +72,20 @@ def _blend_u8(c, nsum, minlen, maxlen, sharpen: float) -> torch.Tensor:
     return torch.clamp(out * 255.0, 0.0, 255.0).to(torch.int32).to(torch.uint8)
 
 
-def cas_parity4_planes_u2_reference(P00, P01, P10, P11, sharpen: float):
-    """Plain PyTorch version of the quad CAS kernel, on any device: weave
-    to (..., 2h, 2Wh) f32, L = min(|v|, 1), edge-padded 3x3 CAS with the
-    kernel's blend, quantize, split into the four parity planes."""
-    planes = (P00, P01, P10, P11)
-    _check_planes(planes)
-    lead = P00.shape[:-2]
-    h, Wh = P00.shape[-2:]
-    f = [
-        from_i16_storage(p) if p.dtype == torch.int16 else p
-        for p in (x.reshape((-1, h, Wh)) for x in planes)
-    ]
-    N = f[0].shape[0]
-    v = torch.stack(
-        [torch.stack([f[0], f[1]], dim=-1), torch.stack([f[2], f[3]], dim=-1)],
-        dim=-3,
-    ).reshape(N, 2 * h, 2 * Wh)
-    L = torch.clamp(v.abs(), max=1.0)
+# ---------------------------------------------------------------------------
+# K3: woven CAS
+# ---------------------------------------------------------------------------
+
+
+def cas_quantize_reference(v: torch.Tensor, sharpen: float) -> torch.Tensor:
+    """Plain PyTorch version of the woven CAS kernel, on any device:
+    (..., H, W) int16 Q2.14 or float32 pre-CAS image (u^2 pre-scale folded
+    in) -> (..., H, W) uint8.  L = min(|v|, 1), edge-padded 3x3 CAS with
+    the kernel's rsqrt blend (cas_pallas.py:134-202), quantize."""
+    _check("woven CAS", (v,))
+    H, W = v.shape[-2:]
+    f = from_i16_storage(v) if v.dtype == torch.int16 else v
+    L = torch.clamp(f.reshape(-1, H, W).abs(), max=1.0)
     p = F.pad(L[:, None], (1, 1, 1, 1), mode="replicate")[:, 0]
     c = p[:, 1:-1, 1:-1]
     n, s = p[:, :-2, 1:-1], p[:, 2:, 1:-1]
@@ -77,48 +99,108 @@ def cas_parity4_planes_u2_reference(P00, P01, P10, P11, sharpen: float):
     max_all = mx(max_cross, mx(mx(nw, ne), mx(sw, se)))
     minlen = 0.5 * (min_cross + min_all)
     maxlen = 0.5 * (max_cross + max_all)
-    out = _blend_u8(c, (n + s) + (w + e), minlen, maxlen, sharpen)
-    o4 = out.reshape(N, h, 2, Wh, 2)
+    return _blend_u8(c, (n + s) + (w + e), minlen, maxlen, sharpen).reshape(v.shape)
+
+
+def cas_quantize(v: torch.Tensor, sharpen: float) -> torch.Tensor:
+    """Woven CAS + quantize: (..., H, W) int16 Q2.14 or float32 -> uint8
+    of the same shape.  CUDA tensors go through csrc/cas_woven.cu, CPU
+    tensors take the plain version."""
+    _check("woven CAS", (v,))
+    if v.device.type == "cpu":
+        return cas_quantize_reference(v, sharpen)
+    H, W = v.shape[-2:]
+    out = torch.empty(v.shape, dtype=torch.uint8, device=v.device)
+    if v.numel() == 0:
+        return out
+    _launch("vkr_cas_woven", v.device, v.data_ptr(), out.data_ptr(),
+            v.numel() // (H * W), H, W, int(v.dtype == torch.int16), float(sharpen))
+    cas_quantize.launches += 1
+    return out
+
+
+cas_quantize.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: rows-parity CAS (u=2)
+# ---------------------------------------------------------------------------
+
+
+def cas_parity_planes_u2_reference(U, O, sharpen: float):
+    """Plain PyTorch version of the rows-parity CAS kernel, on any device:
+    weave sample rows U and odd rows O (..., h, W) to (..., 2h, W) in their
+    stored dtype, run the woven CAS, split into even rows E and odd rows D."""
+    _check("rows-parity CAS", (U, O))
+    h, W = U.shape[-2:]
+    v = torch.stack([U, O], dim=-2).reshape(U.shape[:-2] + (2 * h, W))
+    out = cas_quantize_reference(v, sharpen)
+    return out[..., 0::2, :].contiguous(), out[..., 1::2, :].contiguous()
+
+
+def cas_parity_planes_u2(U, O, sharpen: float):
+    """u=2 rows-parity fused CAS: sample rows U and odd rows O (..., h, W),
+    int16 Q2.14 or float32, to the uint8 even-row and odd-row planes (E, D)
+    of the same shape.  CUDA tensors go through csrc/cas_parity.cu, CPU
+    tensors take the plain version."""
+    _check("rows-parity CAS", (U, O))
+    if U.device.type == "cpu":
+        return cas_parity_planes_u2_reference(U, O, sharpen)
+    h, W = U.shape[-2:]
+    E, D = (torch.empty(U.shape, dtype=torch.uint8, device=U.device) for _ in range(2))
+    if U.numel() == 0:
+        return E, D
+    _launch("vkr_cas_parity_u2", U.device, U.data_ptr(), O.data_ptr(),
+            E.data_ptr(), D.data_ptr(), U.numel() // (h * W), h, W,
+            int(U.dtype == torch.int16), float(sharpen))
+    cas_parity_planes_u2.launches += 1
+    return E, D
+
+
+cas_parity_planes_u2.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1: quad-parity CAS (u=2)
+# ---------------------------------------------------------------------------
+
+
+def cas_parity4_planes_u2_reference(P00, P01, P10, P11, sharpen: float):
+    """Plain PyTorch version of the quad CAS kernel, on any device: weave
+    the four planes P[ry][rx] (..., h, Wh) to (..., 2h, 2Wh) in their
+    stored dtype, run the woven CAS, split into the four parity planes."""
+    planes = (P00, P01, P10, P11)
+    _check("quad CAS", planes)
+    h, Wh = P00.shape[-2:]
+    v = torch.stack(
+        [torch.stack([P00, P01], dim=-1), torch.stack([P10, P11], dim=-1)], dim=-3
+    ).reshape(P00.shape[:-2] + (2 * h, 2 * Wh))
+    out = cas_quantize_reference(v, sharpen)
     return tuple(
-        o4[:, :, ry, :, rx].contiguous().reshape(lead + (h, Wh))
+        out[..., ry::2, rx::2].contiguous()
         for ry, rx in ((0, 0), (0, 1), (1, 0), (1, 1))
     )
 
 
 def cas_parity4_planes_u2(P00, P01, P10, P11, sharpen: float):
     """u=2 quad-parity fused CAS: four pre-CAS planes (..., h, Wh), int16
-    Q2.14 or float32, to four uint8 planes of the same shape.
-
-    CUDA tensors go through the hand-written kernel (csrc/cas_quad.cu) on
-    the current stream; a launch error raises.  CPU tensors take the plain
-    version."""
+    Q2.14 or float32, to four uint8 planes of the same shape.  CUDA tensors
+    go through csrc/cas_quad.cu, CPU tensors take the plain version."""
     planes = (P00, P01, P10, P11)
-    _check_planes(planes)
+    _check("quad CAS", planes)
     if P00.device.type == "cpu":
         return cas_parity4_planes_u2_reference(*planes, sharpen)
-    if P00.device.type != "cuda":
-        raise ValueError(f"quad CAS runs on cuda or cpu, not {P00.device}")
-    lead = P00.shape[:-2]
     h, Wh = P00.shape[-2:]
-    C = P00.numel() // max(1, h * Wh)
     outs = tuple(torch.empty(P00.shape, dtype=torch.uint8, device=P00.device)
                  for _ in range(4))
     if P00.numel() == 0:
         return outs
-    from .._build import load_kernels
-
-    lib = load_kernels()
-    with torch.cuda.device(P00.device):
-        stream = torch.cuda.current_stream(P00.device).cuda_stream
-        rc = lib.vkr_cas_quad_u2(
-            *(p.data_ptr() for p in planes),
-            *(o.data_ptr() for o in outs),
-            C, h, Wh, int(P00.dtype == torch.int16), float(sharpen), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"cas_quad_u2 launch failed: cudaError_t {rc}")
+    _launch("vkr_cas_quad_u2", P00.device,
+            *(p.data_ptr() for p in planes), *(o.data_ptr() for o in outs),
+            P00.numel() // (h * Wh), h, Wh, int(P00.dtype == torch.int16),
+            float(sharpen))
     cas_parity4_planes_u2.launches += 1
-    return tuple(o.reshape(lead + (h, Wh)) for o in outs)
+    return outs
 
 
 cas_parity4_planes_u2.launches = 0

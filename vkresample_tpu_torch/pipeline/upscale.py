@@ -1,16 +1,25 @@
 """Single-image upscale pipeline: uint8 image in, uint8 planes or image out
 (counterpart of vkresample_tpu/pipeline/upscale.py).
 
-The port's slice is the reference's headline run: u=2, R2C spectrum, CAS
-sharpen, in fp32 (-p 0) or half storage (-p 2), widths a multiple of 128,
-every axis <= DENSE_MAX.  Per frame it runs
+The port runs the small dense tier (every axis <= DENSE_MAX) of R2C plans
+with CAS sharpen, in fp32 (-p 0) or half storage (-p 2), on two engines.
+The MXU engine (on this card: the dense GEMM form, fft/mxu_pipeline.py)
+takes one of four routes per frame, as the JAX package's _pipeline does:
 
-    dense.r2c_quad        x GEMM (odd columns) + y GEMM (odd rows)
-    [HALF] Q2.14 staging  inside r2c_quad, the y GEMM reads stored planes
-    cas_parity4_planes_u2 the hand-written quad CAS kernel (csrc/cas_quad.cu)
+  quad   u=2, width % 128 == 0, parity-plane consumer (the CLI):
+         dense.r2c_quad -> K1 cas_parity4_planes_u2 -> four uint8 planes
+  rows   u=2 otherwise, every woven caller included (upscale()):
+         dense.r2c_rows -> K2 cas_parity_planes_u2 -> planes (E, D), woven
+         on the device for woven callers
+  rows   integer u >= 3: dense.r2c_rows -> weave_rows -> K3 cas_quantize
+  chain  fractional u and u=1: dense.r2c_chain on the normalized image ->
+         K3 cas_quantize
 
-and returns four uint8 parity planes (C, h, w) that the PNG encoder weaves.
-Every other plan raises NotImplementedError naming its ROADMAP.md item.
+In half storage the pre-CAS planes are int16 Q2.14 and the y GEMM reads
+the stored planes; the chain keeps float32 (the JAX generic branch has no
+storage codec).  The XLA engine (-engine xla, the reference tier) runs
+torch.fft on the materialized big spectrum -> K3.  fp64, c2c and axes over
+DENSE_MAX raise NotImplementedError naming their ROADMAP.md item.
 
 Numerics: every float32 GEMM runs in full fp32.  PyTorch's default already
 keeps TF32 off for matmuls, but cuDNN's default is on; both are set off
@@ -22,13 +31,45 @@ from __future__ import annotations
 import functools
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from ..core.config import Precision
+from ..core.config import Engine, Precision
 from ..core.plan import DENSE_MAX, UpscalePlan
-from ..fft import dense
+from ..fft import dense, mxu_pipeline
 from ..ops import cas as cas_ops
-from ..ops.cas_cuda import cas_parity4_planes_u2
+from ..ops.cas_cuda import cas_parity4_planes_u2, cas_parity_planes_u2, cas_quantize
+from ..ops.spectrum import assemble_big_spectrum
+from ..ops.weave import weave_rows_u8
+
+
+def _irfft2(G: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Inverse of a (..., H, W//2+1) half spectrum to (..., H, W) real,
+    normalized by 1/(H*W).  The y pass is a complex inverse; the x pass a
+    C2R that drops the imaginary parts of the DC and Nyquist columns, as
+    numpy's irfft and the reference's C2R do: they are zeroed explicitly
+    so the result does not rest on how cuFFT treats a non-Hermitian C2R
+    input (the relocated y-Nyquist row makes column 0 non-Hermitian)."""
+    g = torch.fft.ifft(G, n=H, dim=-2)
+    g[..., 0].imag.zero_()
+    if W % 2 == 0:
+        g[..., W // 2].imag.zero_()
+    return torch.fft.irfft(g, n=W, dim=-1)
+
+
+def _precas_xla(x: torch.Tensor, plan: UpscalePlan) -> torch.Tensor:
+    """(..., h, w) normalized image -> (..., H, W) pre-CAS image in CAS
+    units: the reference tier, torch.fft on the materialized big spectrum
+    with the u^2 factor taken in float32 (upscale.py:28-41)."""
+    u2 = float(np.float32(float(np.float32(plan.upscale)) ** 2))
+    G = assemble_big_spectrum(torch.fft.rfft2(x), plan)
+    return u2 * _irfft2(G, plan.H, plan.W)
+
+
+def _precas(x: torch.Tensor, plan: UpscalePlan, engine: Engine, banks) -> torch.Tensor:
+    if engine is Engine.XLA:
+        return _precas_xla(x, plan)
+    return mxu_pipeline.upscale_precas_mxu(x, plan, banks)
 
 
 def _parity_route(plan: UpscalePlan) -> Optional[str]:
@@ -44,90 +85,91 @@ def _parity_route(plan: UpscalePlan) -> Optional[str]:
 
 def unsupported_reason(plan: UpscalePlan) -> Optional[str]:
     """Why the port cannot run this plan yet (naming the ROADMAP.md item
-    that ports it), or None when the plan is on the ported slice."""
+    that ports it), or None when the plan is on the ported tiers."""
     if plan.precision is Precision.DOUBLE:
         return "fp64 (-p 1) is not ported yet (ROADMAP.md modules item 6)"
     if not plan.r2c:
         return "the c2c spectrum path is not ported yet (ROADMAP.md modules item 6)"
-    if plan.integer_upscale is None:
-        return (
-            f"fractional upscale {plan.upscale} is not ported yet "
-            "(ROADMAP.md modules item 6)"
-        )
-    if plan.integer_upscale != 2:
-        return (
-            f"upscale factor {plan.integer_upscale} is not ported yet "
-            "(ROADMAP.md modules item 6)"
-        )
     if max(plan.h, plan.w, plan.H, plan.W) > DENSE_MAX:
         return (
             f"axes over {DENSE_MAX} ({plan.h}x{plan.w} -> {plan.H}x{plan.W}) "
             "are not ported yet (ROADMAP.md modules item 8)"
         )
-    if _parity_route(plan) != "quad" or not dense.r2c_rows_supported(plan):
-        return (
-            f"width {plan.w} is not a multiple of 128: the rows-parity route "
-            "is not ported yet (ROADMAP.md modules item 5)"
-        )
     return None
-
-
-def parity_planes_supported(plan: UpscalePlan) -> bool:
-    """True when the plan runs the fused per-parity CAS route whose native
-    output is uint8 parity planes that the PNG encoder weaves."""
-    return unsupported_reason(plan) is None
 
 
 def planes_format(plan: UpscalePlan) -> Optional[str]:
     """Output layout of the planes_out pipeline: 'quad' = four (C, H/2,
-    W/2) planes p[row parity][col parity]; None = not on the slice."""
-    return "quad" if parity_planes_supported(plan) else None
+    W/2) planes p[row parity][col parity]; 'rows' = (E, D), each (C, H/2,
+    W), the even and odd output rows; None = woven output only."""
+    if unsupported_reason(plan) is not None or plan.resolve_engine() is not Engine.MXU:
+        return None
+    return _parity_route(plan)
 
 
-def make_device_banks(plan: UpscalePlan, device) -> dict:
-    """Float32 banks of the plan on `device` (built in f64 numpy)."""
+def parity_planes_supported(plan: UpscalePlan) -> bool:
+    """True when the plan runs a fused per-parity CAS route whose native
+    output is uint8 parity planes that the PNG encoder weaves."""
+    return planes_format(plan) is not None
+
+
+def make_device_banks(plan: UpscalePlan, engine: Engine, device, planes_out: bool):
+    """Float32 dense banks of an MXU plan on `device` (built in f64 numpy),
+    None for the XLA engine.  Only the x bank the route reads is uploaded:
+    alpha_odd for the quad route, alpha otherwise."""
+    if engine is not Engine.MXU:
+        return None
+    unused = "alpha" if planes_out and planes_format(plan) == "quad" else "alpha_odd"
     return {
         k: torch.from_numpy(v).to(device)
-        for k, v in dense.r2c_rows_banks(plan, "float32").items()
+        for k, v in mxu_pipeline.make_dense_banks(plan, "float32").items()
+        if k != unused
     }
 
 
-def weave4(p00, p01, p10, p11) -> torch.Tensor:
-    """Quad-parity uint8 planes (C, h, w) -> woven (2h, 2w, C) image, by a
-    strided copy on the planes' device."""
-    C, h, w = p00.shape
-    out = torch.empty((2 * h, 2 * w, C), dtype=torch.uint8, device=p00.device)
-    out[0::2, 0::2] = p00.permute(1, 2, 0)
-    out[0::2, 1::2] = p01.permute(1, 2, 0)
-    out[1::2, 0::2] = p10.permute(1, 2, 0)
-    out[1::2, 1::2] = p11.permute(1, 2, 0)
-    return out
-
-
-def _pipeline(img_u8: torch.Tensor, banks: dict, plan: UpscalePlan,
-              planes_out: bool):
-    """(h, w, C) uint8 on the banks' device -> four (C, h, w) uint8 parity
-    planes, or the woven (H, W, C) image when not planes_out."""
-    # planar (C, h, w), like the reference
-    x_raw = img_u8.permute(2, 0, 1).contiguous()
-    codec = (
-        dict(store=cas_ops.to_i16_storage, load=cas_ops.from_i16_storage)
-        if plan.precision is Precision.HALF
-        else {}
-    )
-    Ps = dense.r2c_quad(x_raw, banks, **codec)
-    Pu8 = cas_parity4_planes_u2(*Ps, plan.sharpen)
-    return Pu8 if planes_out else weave4(*Pu8)
+def _pipeline(img_u8: torch.Tensor, banks, plan: UpscalePlan, engine: Engine,
+              planes_out: bool, planar_out: bool):
+    """(h, w, C) uint8 on the device -> the parity planes of
+    planes_format(plan) (planes_out), or the woven (H, W, C) uint8 image
+    ((C, H, W) when planar_out)."""
+    x_raw = img_u8.permute(2, 0, 1).contiguous()  # planar (C, h, w), like the reference
+    if banks is not None and "Ymat_ns" in banks:
+        # row-split fast paths: raw uint8 feeds the x GEMM (/255 folded
+        # into the banks), the y GEMM emits the non-sample rows
+        codec = (
+            dict(store=cas_ops.to_i16_storage, load=cas_ops.from_i16_storage)
+            if plan.precision is Precision.HALF
+            else {}
+        )
+        fmt = _parity_route(plan)
+        if fmt == "quad" and planes_out:
+            return cas_parity4_planes_u2(*dense.r2c_quad(x_raw, banks, **codec), plan.sharpen)
+        U, O = dense.r2c_rows(x_raw, banks, **codec)
+        if fmt is not None:
+            E, D = cas_parity_planes_u2(U, O, plan.sharpen)
+            if planes_out:
+                return E, D
+            out = weave_rows_u8(E, D)
+        else:
+            out = cas_quantize(dense.weave_rows(U, O, plan.integer_upscale), plan.sharpen)
+    else:
+        x = cas_ops.normalize_u8(x_raw)
+        out = cas_quantize(_precas(x, plan, engine, banks), plan.sharpen)
+    return out if planar_out else out.permute(1, 2, 0).contiguous()
 
 
 @functools.lru_cache(maxsize=16)
-def _build(plan: UpscalePlan, device: torch.device, planes_out: bool) -> Callable:
+def _build(plan: UpscalePlan, device: torch.device, planes_out: bool,
+           planar_out: bool) -> Callable:
     reason = unsupported_reason(plan)
     if reason is not None:
         raise NotImplementedError(reason)
+    if planes_out and planes_format(plan) is None:
+        raise ValueError(f"the plan has no parity-plane output: {plan}")
+    engine = plan.resolve_engine()
     torch.backends.cuda.matmul.allow_tf32 = False  # see the module docstring
     torch.backends.cudnn.allow_tf32 = False
-    banks = make_device_banks(plan, device)
+    banks = make_device_banks(plan, engine, device, planes_out)
 
     def fn(img):
         img = torch.as_tensor(img)
@@ -137,18 +179,21 @@ def _build(plan: UpscalePlan, device: torch.device, planes_out: bool) -> Callabl
             img = img[:, :, None]
         if tuple(img.shape[:2]) != (plan.h, plan.w):
             raise ValueError(f"image {tuple(img.shape)} does not match plan {plan}")
-        return _pipeline(img.to(device), banks, plan, planes_out)
+        return _pipeline(img.to(device), banks, plan, engine, planes_out, planar_out)
 
     return fn
 
 
-def build_upscale(plan: UpscalePlan, device=None, planes_out: bool = False) -> Callable:
+def build_upscale(plan: UpscalePlan, device=None, planes_out: bool = False,
+                  planar_out: bool = False) -> Callable:
     """Plan cache: the analog of initializeVulkanFFT called once per
     (shape, precision, upscale) and reused across frames
     (VkResample.cpp:1506-1508).  The f64-built banks are uploaded to
-    `device` once here and reused by every call; the returned function maps
-    an (h, w, C) uint8 image to four (C, h, w) uint8 parity planes
-    (planes_out) or the woven (H, W, C) uint8 image, on `device`.
+    `device` once here and reused by every call.  The returned function
+    maps an (h, w, C) uint8 image to the uint8 parity planes of
+    planes_format(plan) (planes_out; ValueError when the plan has none), or
+    to the woven (H, W, C) uint8 image ((C, H, W) when planar_out), on
+    `device`.
 
     device: a torch device (default: cuda when available, else cpu)."""
     if device is None:
@@ -156,7 +201,7 @@ def build_upscale(plan: UpscalePlan, device=None, planes_out: bool = False) -> C
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return _build(plan, device, bool(planes_out))
+    return _build(plan, device, bool(planes_out), bool(planar_out))
 
 
 def upscale(
@@ -165,6 +210,7 @@ def upscale(
     precision: Precision = Precision.SINGLE,
     sharpen: float = 0.2,
     r2c: bool = True,
+    engine: Engine = Engine.AUTO,
     plan: Optional[UpscalePlan] = None,
     device=None,
 ) -> torch.Tensor:
@@ -179,6 +225,6 @@ def upscale(
     if plan is None:
         plan = UpscalePlan(
             h=h, w=w, upscale=upscale, precision=precision,
-            sharpen=sharpen, r2c=r2c, channels=c,
+            sharpen=sharpen, r2c=r2c, channels=c, engine=engine,
         )
     return build_upscale(plan, device)(img)

@@ -1,25 +1,33 @@
-"""Map the JAX package's DFT bank dict onto the port's.
+"""Map the JAX package's DFT bank dicts onto the port's.
 
-The JAX u=2 banks (vkresample_tpu/fft/dense.py::r2c_rows_banks) carry the
-odd-column x bank as a bf16 hi|lo split for the TPU's MXU; the port runs
-one float32 GEMM, so ``alpha_odd = alpha_odd_hi + alpha_odd_lo`` (exact in
-float32).  ``Ymat_ns``, ``Y1n`` and ``beta`` carry over as they are.  The
-tests use this to feed both implementations the very same banks.
+The JAX row-split banks (vkresample_tpu/fft/dense.py::r2c_rows_banks, every
+integer u >= 2) carry the x banks as a bf16 hi|lo split for the TPU's MXU;
+the port runs one float32 GEMM, so ``alpha = alpha_hi + alpha_lo`` and, at
+u=2, ``alpha_odd = alpha_odd_hi + alpha_odd_lo`` (exact in float32).
+``Ymat_ns``, ``Y1n`` and ``beta`` carry over as they are, and so do the
+chain banks (r2c_chain_banks: ``alpha``, ``Ymat``, ``Y1``, ``beta``).  The
+TPU's int8 digit banks have no counterpart and are dropped.  The tests use
+this to feed both implementations the very same banks.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+_SPLIT = ("alpha", "alpha_odd")  # bf16 hi|lo pairs in the JAX row-split banks
+_PLAIN = ("alpha", "Ymat_ns", "Ymat", "Y1n", "Y1", "beta")
+
 
 def banks_from_jax(banks: dict, device=None) -> dict:
     """JAX bank dict (numpy arrays) -> the port's float32 device banks."""
-    hi = np.asarray(banks["alpha_odd_hi"]).astype(np.float32)
-    lo = np.asarray(banks["alpha_odd_lo"]).astype(np.float32)
-    out = {"alpha_odd": hi + lo}
-    for key in ("Ymat_ns", "Y1n", "beta"):
+    out = {}
+    for key in _PLAIN:
         if key in banks:
             out[key] = np.asarray(banks[key]).astype(np.float32)
+    for key in _SPLIT:
+        if key + "_hi" in banks:
+            hi = np.asarray(banks[key + "_hi"]).astype(np.float32)
+            out[key] = hi + np.asarray(banks[key + "_lo"]).astype(np.float32)
     return {
         k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
         for k, v in out.items()
