@@ -86,7 +86,7 @@ def test_banks_reject_other_geometries(kw, rows):
 def test_r2c_quad_f32_matches_jax(h, w, bank_src):
     _, jbanks, img = _setup(h, w, seed=h + w)
     want = jdense.r2c_quad(jnp.asarray(img), jbanks, HIGHEST)
-    tb = _own_banks(h, w) if bank_src == "own" else banks_from_jax(jbanks)
+    tb = _own_banks(h, w) if bank_src == "own" else banks_from_jax(jbanks, "cpu")
     got = dense.r2c_quad(torch.from_numpy(img), tb)
     for name, a, b in zip(("P00", "P01", "P10", "P11"), want, got):
         assert b.dtype == torch.float32 and b.shape == (3, h, w)
@@ -100,7 +100,7 @@ def test_r2c_quad_i16_matches_jax_same_banks(h, w):
     within 1 tick (independent f32 rounding can flip one rounding)."""
     _, jbanks, img = _setup(h, w, seed=3 * h + w)
     want = jdense.r2c_quad(jnp.asarray(img), jbanks, HIGHEST, **_JCODEC)
-    got = dense.r2c_quad(torch.from_numpy(img), banks_from_jax(jbanks), **_CODEC)
+    got = dense.r2c_quad(torch.from_numpy(img), banks_from_jax(jbanks, "cpu"), **_CODEC)
     for name, a, b in zip(("P00", "P01", "P10", "P11"), want, got):
         assert b.dtype == torch.int16
         d = np.abs(np.asarray(a).astype(np.int32) - b.numpy().astype(np.int32))
@@ -157,7 +157,7 @@ def test_i16_codec_matches_jax():
 
 def test_banks_from_jax_maps_keys_and_split():
     _, jbanks, _ = _setup(64, 128, seed=1)
-    tb = banks_from_jax(jbanks)
+    tb = banks_from_jax(jbanks, "cpu")
     assert set(tb) == {"alpha", "alpha_odd", "Ymat_ns", "Y1n", "beta"}
     assert all(t.dtype == torch.float32 for t in tb.values())
     own = dense.r2c_rows_banks(UpscalePlan(h=64, w=128, upscale=2.0))
@@ -176,4 +176,4 @@ def test_half_precision_banks_are_jax_half_banks_minus_int8():
         JPlan(h=64, w=128, upscale=2.0, precision=JPrecision.HALF, engine=JEngine.MXU)
     )
     assert "xq_d1" in jb
-    assert set(banks_from_jax(jb)) == {"alpha", "alpha_odd", "Ymat_ns", "Y1n", "beta"}
+    assert set(banks_from_jax(jb, "cpu")) == {"alpha", "alpha_odd", "Ymat_ns", "Y1n", "beta"}

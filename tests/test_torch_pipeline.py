@@ -1,7 +1,9 @@
 """The port's u=2 routes end to end (CPU, plain versions) against the fp64
 oracle, the JAX package's composed quad route and the golden sample; its
 routing, CLI, PNG codecs and import hygiene.  The other factors and the
-reference tier are in test_torch_routes.py."""
+reference tier are in test_torch_routes.py; c2c in test_torch_c2c.py.
+The CLI runs in-process with device="cpu" (the command line needs a CUDA
+device)."""
 import os
 import subprocess
 import sys
@@ -10,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from vkresample_tpu_torch import Engine, Precision, UpscalePlan, build_upscale, upscale
+from vkresample_tpu_torch import Engine, Precision, UpscalePlan, build_upscale, cli, upscale
 from vkresample_tpu_torch.fft import dense
 from vkresample_tpu_torch.io import png
 from vkresample_tpu_torch.ops import cas
@@ -118,8 +120,8 @@ def test_single_channel_and_plan_cache():
     "kw,item",
     [
         (dict(h=64, w=128, upscale=2.0, precision=Precision.DOUBLE), "item 6"),
-        (dict(h=64, w=128, upscale=2.0, r2c=False), "item 6"),
         # ported since: they run, within 1 LSB of the oracle
+        (dict(h=64, w=128, upscale=2.0, r2c=False), "grid"),
         (dict(h=64, w=128, upscale=3.0), None),
         (dict(h=64, w=128, upscale=1.0), None),
         (dict(h=64, w=128, upscale=1.5), None),
@@ -128,10 +130,10 @@ def test_single_channel_and_plan_cache():
     ],
 )
 def test_out_of_slice_plans_raise(kw, item):
-    """fp64, c2c and axes over the dense cap raise naming their ROADMAP.md
-    item; the other plans run (item = their planes_format)."""
+    """fp64 and axes over the dense cap raise naming their ROADMAP.md item;
+    the other plans run (item = their planes_format)."""
     plan = UpscalePlan(**kw)
-    if item is None or item == "rows":
+    if item in (None, "rows", "grid"):
         assert tpipe.planes_format(plan) == item
         img = _img(plan.h, plan.w, seed=plan.w + plan.H)
         got = build_upscale(plan, "cpu")(img)
@@ -154,20 +156,20 @@ def test_routing_matches_jax_parity_route():
     assert tpipe.planes_format(UpscalePlan(h=64, w=128, upscale=2.0)) == "quad"
 
 
-def _cli(*args, env=None):
-    return subprocess.run(
-        [sys.executable, "-m", "vkresample_tpu_torch", *args],
-        cwd=ROOT, capture_output=True, text=True, timeout=300, env=env,
-    )
+def _cli(capsys, *args):
+    """The CLI in-process on the CPU: (exit code, stdout)."""
+    capsys.readouterr()
+    rc = cli.main(list(args), device="cpu")
+    return rc, capsys.readouterr().out
 
 
-def test_cli_validate_and_golden(tmp_path):
+def test_cli_validate_and_golden(tmp_path, capsys):
     out = str(tmp_path / "out.png")
-    proc = _cli("-i", os.path.join(SAMPLES, "test_256x128.png"), "-o", out,
-                "-u", "2", "-p", "2", "-n", "2", "-validate")
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "Validation vs fp64 oracle: maxdiff=" in proc.stdout
-    assert "upscale: 256x128 to 512x256 Time: " in proc.stdout
+    rc, stdout = _cli(capsys, "-i", os.path.join(SAMPLES, "test_256x128.png"), "-o", out,
+                      "-u", "2", "-p", "2", "-n", "2", "-validate")
+    assert rc == 0, stdout
+    assert "Validation vs fp64 oracle: maxdiff=" in stdout
+    assert "upscale: 256x128 to 512x256 Time: " in stdout
     gold = png.read_png(os.path.join(SAMPLES, "golden_256x128_x2.png"))
     assert _maxdiff(png.read_png(out), gold) <= 1
 
@@ -175,30 +177,68 @@ def test_cli_validate_and_golden(tmp_path):
 @pytest.mark.parametrize(
     "args,rc,msg",
     [
-        # -u 1.5 is ported since: it runs and validates
+        # -u 1.5 and -c2c are ported since: they run and validate
         (("-u", "1.5", "-validate"), 0, "maxdiff="),
         (("-u", "2", "-p", "1"), 1, "not ported yet (ROADMAP.md modules item 6)"),
-        (("-u", "2", "-c2c"), 1, "-c2c: the c2c spectrum path"),
+        (("-u", "2", "-c2c", "-validate"), 0, "(tol 1) OK"),
         (("-ifolder", "x", "-u", "2"), 1, "not ported yet"),
         (("-u", "2", "-engine"), 1, "No engine"),
         (("-p",), 1, "No precision"),
     ],
 )
-def test_cli_errors_exit_1(tmp_path, args, rc, msg):
+def test_cli_errors_exit_1(tmp_path, capsys, args, rc, msg):
     """Plans and flags outside the port exit 1 with a message and write no
-    file; the missing input and -h cases ride on the first case."""
+    file; the missing input and -h cases ride on the running cases."""
     sample = os.path.join(SAMPLES, "test_256x128.png")
     out = tmp_path / "a.png"
     full = args if args[0] == "-ifolder" else ("-i", sample, "-o", str(out)) + args
-    proc = _cli(*full)
-    assert proc.returncode == rc, (args, proc.stdout, proc.stderr)
-    assert msg in proc.stdout, (args, proc.stdout)
+    got_rc, stdout = _cli(capsys, *full)
+    assert got_rc == rc, (args, stdout)
+    assert msg in stdout, (args, stdout)
     assert out.exists() == (rc == 0)
     if rc == 0:
-        proc = _cli("-i", str(tmp_path / "missing.png"), "-u", "2")
-        assert proc.returncode == 1 and "Image not found" in proc.stdout
-        proc = _cli("-h")
-        assert proc.returncode == 0 and "-validate" in proc.stdout and "-engine" in proc.stdout
+        got_rc, stdout = _cli(capsys, "-i", str(tmp_path / "missing.png"), "-u", "2")
+        assert got_rc == 1 and "Image not found" in stdout
+        got_rc, stdout = _cli(capsys, "-h")
+        assert got_rc == 0 and all(f in stdout for f in ("-validate", "-engine", "-c2c"))
+
+
+def test_command_line_needs_a_cuda_device(monkeypatch, capsys):
+    """Without a CUDA device the command line (main() without a device)
+    exits 1 with a message; it never runs on the CPU by itself."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = cli.main(["-i", os.path.join(SAMPLES, "test_256x128.png"), "-u", "2"])
+    assert rc == 1 and "Error: no CUDA device" in capsys.readouterr().out
+
+
+def test_entry_points_need_a_cuda_device_unless_cpu_is_asked(monkeypatch):
+    """build_upscale, upscale and banks_from_jax run on the card by
+    default and raise without one; device="cpu" is the only way to the
+    CPU."""
+    from vkresample_tpu_torch.weights import banks_from_jax
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    plan = UpscalePlan(h=64, w=128, upscale=2.0)
+    img = _img(64, 128, seed=3)
+    for call in (lambda: build_upscale(plan), lambda: upscale(img, 2.0),
+                 lambda: banks_from_jax({"alpha": np.zeros((2, 2))})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert build_upscale(plan, "cpu")(img).device.type == "cpu"
+    assert banks_from_jax({"alpha": np.zeros((2, 2))}, "cpu")["alpha"].device.type == "cpu"
+
+
+def test_png_codec_builds_the_ports_own_source():
+    """io/png.py compiles the port's copy of pngio.cpp (never a file of the
+    JAX package) into the port's build directory."""
+    pkg = os.path.realpath(os.path.join(ROOT, "vkresample_tpu_torch"))
+    src = os.path.realpath(png._PNGIO_SRC)
+    assert src.startswith(pkg + os.sep) and os.path.isfile(src)
+    assert os.path.realpath(png._BUILD_DIR).startswith(pkg + os.sep)
+    with open(src) as f:
+        assert "vkr_png_encode_planar_grid" in f.read()
+    built = png._build_native()
+    assert built is None or os.path.realpath(built).startswith(pkg + os.sep)
 
 
 def test_slice_runs_without_jax():
@@ -209,10 +249,11 @@ def test_slice_runs_without_jax():
         "import numpy as np, vkresample_tpu_torch as v\n"
         "from vkresample_tpu_torch.oracle.numpy_ref import upscale_oracle\n"
         "img = np.random.default_rng(0).integers(0, 256, (64, 128, 3), np.uint8)\n"
-        "p = v.UpscalePlan(h=64, w=128, upscale=2.0, precision=v.Precision.HALF)\n"
-        "out = v.upscale(img, 2.0, plan=p, device='cpu').numpy()\n"
-        "d = np.abs(out.astype(int) - upscale_oracle(img, p)).max()\n"
-        "assert d <= 1, d\n"
+        "for r2c in (True, False):\n"
+        "    p = v.UpscalePlan(h=64, w=128, upscale=2.0, precision=v.Precision.HALF, r2c=r2c)\n"
+        "    out = v.upscale(img, 2.0, plan=p, device='cpu').numpy()\n"
+        "    d = np.abs(out.astype(int) - upscale_oracle(img, p)).max()\n"
+        "    assert d <= 1, d\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'vkresample_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"

@@ -11,8 +11,6 @@ Tolerances, by what is compared:
   the odd rows with the port's own banks (ROADMAP.md §3);
 - uint8 images: <= 1 LSB (the JAX package's own bar against the oracle)."""
 import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +23,7 @@ from vkresample_tpu.core.config import Precision as JPrecision
 from vkresample_tpu.core.plan import UpscalePlan as JPlan
 from vkresample_tpu.fft import dense as jdense
 from vkresample_tpu.ops import cas as jcas
-from vkresample_tpu_torch import Engine, Precision, UpscalePlan, build_upscale, upscale
+from vkresample_tpu_torch import Engine, Precision, UpscalePlan, build_upscale, cli, upscale
 from vkresample_tpu_torch.fft import dense, mxu_pipeline
 from vkresample_tpu_torch.io import png
 from vkresample_tpu_torch.ops import cas, weave
@@ -102,7 +100,7 @@ def test_r2c_rows_f32_matches_jax(u, bank_src):
     img = _img(h, w, seed=int(u) + 5)[..., 0][None].repeat(2, 0)
     want = jdense.r2c_rows(jnp.asarray(img), jbanks, HIGHEST)
     tb = (_own(dense.r2c_rows_banks(UpscalePlan(h=h, w=w, upscale=u)))
-          if bank_src == "own" else banks_from_jax(jbanks))
+          if bank_src == "own" else banks_from_jax(jbanks, "cpu"))
     got = dense.r2c_rows(torch.from_numpy(img), tb)
     assert got[1].shape == (2, h * (int(u) - 1), int(u) * w)
     for a, b in zip(want, got):
@@ -120,7 +118,7 @@ def test_r2c_rows_i16_matches_jax(u, bank_src):
     img = _img(h, w, seed=int(u) + 9)[..., 0][None]
     want = jdense.r2c_rows(jnp.asarray(img), jbanks, HIGHEST, **_JCODEC)
     tb = (_own(dense.r2c_rows_banks(UpscalePlan(h=h, w=w, upscale=u)))
-          if bank_src == "own" else banks_from_jax(jbanks))
+          if bank_src == "own" else banks_from_jax(jbanks, "cpu"))
     got = dense.r2c_rows(torch.from_numpy(img), tb, **_CODEC)
     dU, dO = (np.abs(np.asarray(a).astype(np.int32) - b.numpy().astype(np.int32)).max()
               for a, b in zip(want, got))
@@ -135,7 +133,7 @@ def test_r2c_chain_matches_jax(h, w, u):
     x = (_img(h, w, seed=h + w)[..., :2].transpose(2, 0, 1) / 255.0).astype(np.float32)
     want = np.asarray(jdense.r2c_chain(jnp.asarray(x), jbanks, HIGHEST))
     plan = UpscalePlan(h=h, w=w, upscale=u)
-    for tb in (banks_from_jax(jbanks), _own(dense.r2c_chain_banks(plan))):
+    for tb in (banks_from_jax(jbanks, "cpu"), _own(dense.r2c_chain_banks(plan))):
         got = dense.r2c_chain(torch.from_numpy(x), tb)
         assert got.shape == (2, plan.H, plan.W)
         assert np.abs(want - got.numpy()).max() <= F32_TOL
@@ -158,7 +156,8 @@ def test_weave_rows_and_precas_match_jax():
         x = (_img(h, w, seed=1)[..., 0] / 255.0).astype(np.float32)
         jbanks = jmxu.make_dense_banks(jplan)
         want = np.asarray(jmxu.upscale_precas_mxu(jnp.asarray(x), jplan, jbanks))
-        got = mxu_pipeline.upscale_precas_mxu(torch.from_numpy(x), plan, banks_from_jax(jbanks))
+        got = mxu_pipeline.upscale_precas_mxu(torch.from_numpy(x), plan,
+                                              banks_from_jax(jbanks, "cpu"))
         assert np.abs(want - got.numpy()).max() <= F32_TOL
         F = np.fft.rfft2(x).astype(np.complex64)
         np.testing.assert_array_equal(
@@ -263,7 +262,7 @@ def test_routing_matches_jax():
 def test_unported_plans_name_their_item():
     for kw, item in [
         (dict(h=30, w=42, upscale=1.5, precision=Precision.DOUBLE), "item 6"),
-        (dict(h=30, w=42, upscale=3.0, r2c=False), "item 6"),
+        (dict(h=30, w=42, upscale=3.0, r2c=False, precision=Precision.DOUBLE), "item 6"),
         (dict(h=3000, w=3000, upscale=3.0), "item 8"),
         (dict(h=4096, w=4096, upscale=2.5, engine=Engine.XLA), "item 8"),
     ]:
@@ -278,23 +277,23 @@ def test_unported_plans_name_their_item():
 # ---------------------------------------------------------------------------
 
 
-def _cli(*args):
-    return subprocess.run(
-        [sys.executable, "-m", "vkresample_tpu_torch", *args],
-        cwd=ROOT, capture_output=True, text=True, timeout=300,
-    )
+def _cli(capsys, *args):
+    """The CLI in-process on the CPU: (exit code, stdout)."""
+    capsys.readouterr()
+    rc = cli.main(list(args), device="cpu")
+    return rc, capsys.readouterr().out
 
 
 @pytest.mark.parametrize("args", [("-u", "3", "-p", "2"), ("-u", "2", "-engine", "xla"),
                                   ("-u", "1.5", "-engine", "mxu", "-p", "2")])
-def test_cli_validates_woven_routes(tmp_path, args):
+def test_cli_validates_woven_routes(tmp_path, capsys, args):
     """The woven routes through the CLI, -validate against the oracle, and
     the PNG equal to upscale() on the same plan."""
     out = tmp_path / "o.png"
     sample = os.path.join(SAMPLES, "test_256x128.png")
-    proc = _cli("-i", sample, "-o", str(out), *args, "-validate")
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "(tol 1) OK" in proc.stdout
+    rc, stdout = _cli(capsys, "-i", sample, "-o", str(out), *args, "-validate")
+    assert rc == 0, stdout
+    assert "(tol 1) OK" in stdout
     img = png.read_png(sample)
     kw = dict(zip(args[0::2], args[1::2]))
     plan = UpscalePlan(h=128, w=256, upscale=float(kw["-u"]),
@@ -303,7 +302,7 @@ def test_cli_validates_woven_routes(tmp_path, args):
     np.testing.assert_array_equal(png.read_png(str(out)), upscale(img, 0, plan=plan, device="cpu").numpy())
 
 
-def test_cli_non_aligned_width_takes_rows_route(tmp_path):
+def test_cli_non_aligned_width_takes_rows_route(tmp_path, capsys):
     """A 96x200 frame (200 % 128 != 0) at u=2: rows-parity planes, written
     by the rows-parity encoder, equal to the woven upscale()."""
     src, out = tmp_path / "in.png", tmp_path / "o.png"
@@ -311,8 +310,8 @@ def test_cli_non_aligned_width_takes_rows_route(tmp_path):
     png.write_png(str(src), img)
     plan = UpscalePlan(h=96, w=200, upscale=2.0, precision=Precision.HALF)
     assert tpipe.planes_format(plan) == "rows"
-    proc = _cli("-i", str(src), "-o", str(out), "-u", "2", "-p", "2", "-validate")
-    assert proc.returncode == 0 and "(tol 1) OK" in proc.stdout, proc.stdout + proc.stderr
+    rc, stdout = _cli(capsys, "-i", str(src), "-o", str(out), "-u", "2", "-p", "2", "-validate")
+    assert rc == 0 and "(tol 1) OK" in stdout, stdout
     got = png.read_png(str(out))
     assert got.shape == (192, 400, 3)
     np.testing.assert_array_equal(got, upscale(img, 2.0, plan=plan, device="cpu").numpy())

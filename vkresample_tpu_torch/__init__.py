@@ -5,15 +5,17 @@ The JAX package ``vkresample_tpu`` stays beside it as the reference.  This
 package imports torch and numpy only, never jax or vkresample_tpu, and
 builds its CUDA kernels (csrc/) with nvcc at first launch, never at import.
 
-Ported: the R2C upscale with CAS sharpen in fp32 (-p 0) and half storage
-(-p 2) for every factor (integer and fractional) with every axis <= 8192,
-on the dense GEMM engine (quad and rows parity routes at u=2, the rows
-route at integer u >= 3, the dense chain otherwise) and on the torch.fft
-reference tier (-engine xla).  fp64, c2c and larger axes raise
-NotImplementedError naming their ROADMAP.md item.
+Ported: the R2C and c2c upscale with CAS sharpen in fp32 (-p 0) and half
+storage (-p 2) for every factor (integer and fractional) with every axis
+<= 8192, on the GEMM engine (R2C: quad and rows parity routes at u=2, the
+rows route at integer u >= 3, the dense chain otherwise; c2c: the staged
+grid at p <= 4 phases, the dense c2c chain otherwise) and on the torch.fft
+reference tier (-engine xla).  fp64 and larger axes raise
+NotImplementedError naming their ROADMAP.md item.  The entry points run
+on the current CUDA device unless the caller passes device="cpu".
 
 Public API:
-    upscale(img, upscale, precision=..., sharpen=..., engine=...) -> (H, W, C) uint8
+    upscale(img, upscale, precision=..., sharpen=..., r2c=..., engine=..., device=...) -> (H, W, C) uint8
     build_upscale(plan, device, planes_out=..., planar_out=...) -> per-frame function
     UpscalePlan, Precision, Engine
 """

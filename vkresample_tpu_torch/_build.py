@@ -113,19 +113,17 @@ def load_kernels() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build_library())
-            # entry point -> (tensor pointers, int arguments); every entry
-            # then takes the sharpen factor and the stream
-            for name, n_ptr, n_int in (
-                ("vkr_cas_quad_u2", 8, 4),      # P00..P11, O00..O11; C, h, Wh, is_i16
-                ("vkr_cas_parity_u2", 4, 4),    # U, O, E, D; C, h, W, is_i16
-                ("vkr_cas_woven", 2, 4),        # v, out; C, H, W, is_i16
+            # entry point -> arguments before the sharpen factor and the
+            # stream, which every entry takes last
+            ptr, ptrs, i32 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
+            for name, args in (
+                ("vkr_cas_quad_u2", [ptr] * 8 + [i32] * 4),    # P00..P11, O00..O11; C, h, Wh, is_i16
+                ("vkr_cas_parity_u2", [ptr] * 4 + [i32] * 4),  # U, O, E, D; C, h, W, is_i16
+                ("vkr_cas_woven", [ptr] * 2 + [i32] * 4),      # v, out; C, H, W, is_i16
+                ("vkr_cas_grid", [ptrs] * 2 + [i32] * 5),      # in[u*u], out[u*u]; u, C, h, W, is_i16
             ):
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_int
-                fn.argtypes = (
-                    [ctypes.c_void_p] * n_ptr
-                    + [ctypes.c_int] * n_int
-                    + [ctypes.c_float, ctypes.c_void_p]
-                )
+                fn.argtypes = args + [ctypes.c_float, ctypes.c_void_p]
             _lib = lib
         return _lib

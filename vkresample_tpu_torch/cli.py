@@ -5,11 +5,15 @@ vkresample_tpu/cli.py).
 
 Flags and defaults are the reference's (VkResample.cpp:1795-1977):
 -h -devices -d X -u X (default 1) -p X (default 0) -s X (default 0.2)
--n X (default 1) -i NAME -o NAME, plus the JAX CLI's -engine X and
+-n X (default 1) -i NAME -o NAME, plus the JAX CLI's -engine X, -c2c and
 -validate.  Parsing is the same hand-rolled argv scan as the JAX CLI
 (findFlag/getFlagValue semantics, VkResample.cpp:1782-1794).  The batched
-folder flags, -c2c and -profile are not ported yet (ROADMAP.md modules
-items 7, 6 and 11).
+folder flags and -profile are not ported yet (ROADMAP.md modules items 7
+and 11).
+
+The command line runs on CUDA device -d and exits 1 without one; only a
+Python caller of main() may ask for the CPU (device="cpu"), which runs the
+kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ Single image mode:
 	-o NAME: specify output png file path (default X_X_upscaled.png)
 Extras:
 	-engine X: FFT engine: auto (default), mxu (dense GEMMs), xla (torch.fft reference tier)
+	-c2c: use the full-complex spectrum path instead of R2C
 	-validate: cross-check the output against the fp64 NumPy oracle
 """
 
@@ -46,7 +51,6 @@ _NOT_PORTED_FLAGS = {
     "-numthreads": "batched folder mode (ROADMAP.md modules item 7)",
     "-batch": "batched folder mode (ROADMAP.md modules item 7)",
     "-resume": "batched folder mode (ROADMAP.md modules item 7)",
-    "-c2c": "the c2c spectrum path (ROADMAP.md modules item 6)",
     "-profile": "profiling (ROADMAP.md modules item 11)",
 }
 
@@ -119,7 +123,8 @@ def _parse(argv: List[str]):
         if v is None:
             return None
         kw["output_path"] = v
-    return ResampleConfig(**kw), {"validate": find_flag(argv, "-validate")}
+    return ResampleConfig(**kw), {"validate": find_flag(argv, "-validate"),
+                                  "c2c": find_flag(argv, "-c2c")}
 
 
 def _validate(img, out_np, plan) -> int:
@@ -140,14 +145,14 @@ def device_list_string() -> str:
     import torch
 
     if not torch.cuda.is_available():
-        return "No CUDA devices; the port runs its plain CPU versions."
+        return "No CUDA devices found."
     return "\n".join(
         f"Device id: {i} name: {torch.cuda.get_device_name(i)}"
         for i in range(torch.cuda.device_count())
     )
 
 
-def _make_plan(cfg, h: int, w: int):
+def _make_plan(cfg, extras, h: int, w: int):
     """The plan of one frame; output dims must be 7-smooth when the engine
     resolves to the dense GEMM tier (vkresample_tpu/cli.py:178-194)."""
     from .core.config import Engine
@@ -155,14 +160,14 @@ def _make_plan(cfg, h: int, w: int):
 
     plan = UpscalePlan(
         h=h, w=w, upscale=cfg.upscale, precision=cfg.precision,
-        sharpen=cfg.sharpen, engine=cfg.engine,
+        sharpen=cfg.sharpen, r2c=not extras["c2c"], engine=cfg.engine,
     )
     if plan.resolve_engine() is Engine.MXU:
         plan.validate_7smooth()
     return plan
 
 
-def run_single(cfg, extras) -> int:
+def run_single(cfg, extras, device) -> int:
     import numpy as np
     import torch
 
@@ -177,17 +182,13 @@ def run_single(cfg, extras) -> int:
         print("Image not found")
         return 1
     h, w = img.shape[:2]
-    plan = _make_plan(cfg, h, w)
-    if torch.cuda.is_available():
-        device = torch.device("cuda", cfg.device_id)
-        dev_name = torch.cuda.get_device_name(device)
-    else:
-        device = torch.device("cpu")
-        dev_name = "cpu (plain PyTorch versions, no CUDA device)"
-    print(f"Device: {dev_name}")
-    # u=2 dense plans emit the fused CAS kernels' parity planes ('quad' or
-    # 'rows'), which the PNG encoder weaves in its row loop; the rest emit
-    # the planar (C, H, W) image
+    plan = _make_plan(cfg, extras, h, w)
+    device = torch.device(device)
+    print("Device: " + (torch.cuda.get_device_name(device) if device.type == "cuda"
+                        else f"{device} (plain PyTorch versions)"))
+    # u=2 r2c plans and c2c grid plans emit the fused CAS kernels' parity
+    # planes ('quad', 'rows' or 'grid'), which the PNG encoder weaves in its
+    # row loop; the rest emit the planar (C, H, W) image
     fmt = planes_format(plan)
     fn = build_upscale(plan, device, planes_out=fmt is not None, planar_out=True)
     x = torch.from_numpy(img).to(device)
@@ -197,12 +198,16 @@ def run_single(cfg, extras) -> int:
         % (cfg.upscale, w, h, plan.W, plan.H, ms)
     )
     out_path = cfg.output_path or default_output_name(w, cfg.upscale)
-    # quad: 4x (3, H/2, W/2); rows: (E, D), each (3, H/2, W); else (3, H, W)
+    # quad: 4x (3, H/2, W/2); rows: (E, D), each (3, H/2, W); grid: p^2 x
+    # (3, H/p, W/p); else (3, H, W)
     planes = [p.cpu().numpy() for p in out] if fmt else [out.cpu().numpy()]
+    p = int(round(len(planes) ** 0.5))  # grid phase count
     rc = 0
     if extras.get("validate"):
         if fmt == "quad":
             woven = png.weave4_host(*planes)
+        elif fmt == "grid":
+            woven = png.weave_grid_host(planes, p)
         elif fmt == "rows":
             woven = np.stack(planes, axis=2).reshape(3, plan.H, plan.W)
         else:
@@ -210,6 +215,8 @@ def run_single(cfg, extras) -> int:
         rc = _validate(img, np.moveaxis(woven, 0, -1), plan)
     if fmt == "quad":
         png.write_png_planar_parity4(out_path, planes)
+    elif fmt == "grid":
+        png.write_png_planar_grid(out_path, planes, p)
     elif fmt == "rows":
         png.write_png_planar_parity(out_path, *planes)
     else:
@@ -217,7 +224,10 @@ def run_single(cfg, extras) -> int:
     return rc
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def main(argv: Optional[List[str]] = None, device=None) -> int:
+    """Run the CLI on argv (default sys.argv[1:]).  device: None (the
+    command line) runs on CUDA device -d and exits 1 without one; a Python
+    caller may name another device ("cpu" runs the plain versions)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     from . import __version__
 
@@ -236,10 +246,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     if parsed is None:
         return 1
     cfg, extras = parsed
+    if device is None:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("Error: no CUDA device")
+            return 1
+        device = f"cuda:{cfg.device_id}"
     print("vkresample-tpu-torch - FFT based upscaling")
     t0 = time.perf_counter()
     try:
-        rc = run_single(cfg, extras)
+        rc = run_single(cfg, extras, device)
     except (ValueError, NotImplementedError) as e:
         # plan/geometry errors and plans outside the ported slice: a clean
         # message, like the reference's scheduler error paths

@@ -78,6 +78,24 @@ class ResampleConfig:
         return self.ifolder_prefix is not None
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point of the port runs on: the current CUDA
+    device unless the caller names one (``"cpu"`` runs the kernels' plain
+    versions).  RuntimeError when no device is named and no CUDA device is
+    present: the port never falls back to the CPU by itself."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on a CUDA GPU; pass device='cpu' "
+                "to run its plain CPU versions"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def default_output_name(w: int, upscale: float) -> str:
     """Default single-image output name (reference: VkResample.cpp:1706)."""
     return "%d_%d_upscaled.png" % (w, int(upscale * w))

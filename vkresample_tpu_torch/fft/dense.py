@@ -1,5 +1,6 @@
 """Dense DFT engine (counterpart of vkresample_tpu/fft/dense.py): the
-collapsed r2c chain and its row-split and quad-parity fast paths.
+collapsed r2c chain and its row-split and quad-parity fast paths, and the
+collapsed c2c chain.
 
 The r2c pipeline (R2C_x -> fwd_y -> zero-band inv_y -> C2R_x) is a linear
 map real^(h,w) -> real^(H,W).  Grouped by axis it collapses into two GEMMs
@@ -198,6 +199,46 @@ def r2c_chain_banks(plan, dtype: str = "float64") -> dict:
         banks["Y1"] = Y1
         banks["beta"] = beta
     return banks
+
+
+def c2c_chain_banks(plan, dtype: str = "float64") -> dict:
+    """Numpy banks of the collapsed c2c chain, any factor: both round
+    trips are C-linear, so each axis composes into one complex matrix,
+    Xc (w, W) = Dfwd_x @ DXinv_band and Yc (h, H) = Dfwd_y @ DYinv_band,
+    carried as Xr, Xi, Yr, Yi and Yrpyi = Yr + Yi (Karatsuba)."""
+    h, w, H, W = plan.h, plan.w, plan.H, plan.W
+
+    def composite(n, N, kept_lo, kept_hi):
+        i = np.arange(n)
+        F = np.exp(-2j * np.pi * np.outer(i, i) / n)
+        sigma = np.where(i < kept_lo, i, i - n).astype(np.float64)
+        keep = ((i < kept_lo) | (i >= n - kept_hi)).astype(np.float64)
+        Dinv = np.exp(2j * np.pi * np.outer(sigma, np.arange(N)) / N) * keep[:, None] / n
+        return F @ Dinv
+
+    Xc = composite(w, W, plan.kept_lo_x, plan.kept_hi_x)
+    Yc = composite(h, H, plan.kept_lo_y, plan.kept_hi_y)
+    yr, yi = np.real(Yc).astype(dtype), np.imag(Yc).astype(dtype)
+    return {
+        "Xr": np.real(Xc).astype(dtype),
+        "Xi": np.imag(Xc).astype(dtype),
+        "Yr": yr,
+        "Yi": yi,
+        "Yrpyi": (yr + yi).astype(dtype),
+    }
+
+
+def c2c_chain(x: torch.Tensor, banks: dict) -> torch.Tensor:
+    """(..., h, w) normalized image -> (..., H, W) pre-CAS complex
+    magnitude in CAS units: two real x GEMMs, three y GEMMs (Karatsuba)."""
+    Ur = torch.matmul(x, banks["Xr"])
+    Ui = torch.matmul(x, banks["Xi"])
+    t1 = torch.matmul(banks["Yr"].transpose(0, 1), Ur)
+    t2 = torch.matmul(banks["Yi"].transpose(0, 1), Ui)
+    t3 = torch.matmul(banks["Yrpyi"].transpose(0, 1), Ur + Ui)
+    yr = t1 - t2
+    yi = t3 - t1 - t2
+    return torch.sqrt(yr * yr + yi * yi)
 
 
 def r2c_chain(x: torch.Tensor, banks: dict) -> torch.Tensor:

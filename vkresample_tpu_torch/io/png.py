@@ -2,11 +2,11 @@
 
 Two codecs, same pixel semantics (decode forces 8-bit RGB):
 
-- native: the JAX package's C++ codec, vkresample_tpu/native/pngio.cpp,
-  compiled unchanged with g++ against libpng into vkresample_tpu_torch/
-  build/ and bound with ctypes.  Its planar encoders interleave the
-  channels, and the parity ones weave the uint8 planes, inside their row
-  loops.
+- native: the port's own copy of the JAX package's C++ codec,
+  io/native/pngio.cpp, compiled with g++ against libpng into
+  vkresample_tpu_torch/build/ and bound with ctypes.  Its planar encoders
+  interleave the channels, and the parity and grid ones weave the uint8
+  planes, inside their row loops.
 - zlib: a small stdlib PNG reader and writer for 8-bit gray, gray+alpha,
   RGB and RGBA, non-interlaced, for machines without libpng.  Planes are
   woven on the host first.
@@ -29,9 +29,7 @@ from typing import Optional
 import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_PNGIO_SRC = os.path.join(
-    os.path.dirname(_PKG_DIR), "vkresample_tpu", "native", "pngio.cpp"
-)
+_PNGIO_SRC = os.path.join(_PKG_DIR, "io", "native", "pngio.cpp")
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
 
 _lock = threading.Lock()
@@ -98,12 +96,17 @@ def _native():
                         [ctypes.c_char_p] + [u8p] * n
                         + [ctypes.c_int, ctypes.c_int, ctypes.c_int]
                     )
+                lib.vkr_png_encode_planar_grid.restype = ctypes.c_int
+                lib.vkr_png_encode_planar_grid.argtypes = [
+                    ctypes.c_char_p, ctypes.POINTER(u8p), ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ]
                 lib.vkr_free.restype = None
                 lib.vkr_free.argtypes = [ctypes.c_void_p]
                 _lib = lib
             _codec = "native" if _lib is not None else "zlib"
             print(
-                "PNG codec: native libpng (vkresample_tpu/native/pngio.cpp)"
+                "PNG codec: native libpng (vkresample_tpu_torch/io/native/pngio.cpp)"
                 if _lib is not None
                 else "PNG codec: stdlib zlib fallback (libpng unavailable)"
             )
@@ -276,6 +279,17 @@ def weave4_host(p00, p01, p10, p11) -> np.ndarray:
     return out
 
 
+def weave_grid_host(planes, u: int) -> np.ndarray:
+    """Host assembly of u*u grid-parity planes (row-major (ry, rx), each
+    (..., C, h, w)) into (..., C, u*h, u*w) uint8."""
+    ps = [np.asarray(p, np.uint8) for p in planes]
+    c, h, w = ps[0].shape[-3:]
+    out = np.empty(ps[0].shape[:-3] + (c, u * h, u * w), np.uint8)
+    for i, p in enumerate(ps):
+        out[..., i // u::u, i % u::u] = p
+    return out
+
+
 def _encode_planes(entry: str, path: str, planes, width: int, height: int,
                    compression_level: int) -> bool:
     """Encode with the native planar encoder `entry`; False when the zlib
@@ -336,3 +350,22 @@ def write_png_planar_parity4(path: str, planes, compression_level: int = 6) -> N
     if not _encode_planes("vkr_png_encode_planar_parity4", path, ps, 2 * wh, 2 * h2,
                           compression_level):
         write_png(path, np.moveaxis(weave4_host(*ps), 0, -1), compression_level)
+
+
+def write_png_planar_grid(path: str, planes, u: int, compression_level: int = 6) -> None:
+    """Encode from grid-parity planes: u*u row-major (ry, rx) planes, each
+    (3, H/u, W/u) uint8, output pixel (u*t+ry, u*s+rx) at plane (ry, rx)
+    index (t, s).  The native codec weaves both axes inside its row loop;
+    the zlib codec weaves on the host."""
+    ps = _u8_planes(planes, u * u, f"{u * u} matching (3, h, w) uint8 planes")
+    _, h, w = ps[0].shape
+    lib = _native()
+    if lib is None:
+        write_png(path, np.moveaxis(weave_grid_host(ps, u), 0, -1), compression_level)
+        return
+    u8p = ctypes.POINTER(ctypes.c_ubyte)
+    ptrs = (u8p * len(ps))(*[p.ctypes.data_as(u8p) for p in ps])
+    rc = lib.vkr_png_encode_planar_grid(os.fsencode(path), ptrs, u, u * w, u * h,
+                                        compression_level)
+    if rc != 0:
+        raise OSError(_encode_err(rc, path))

@@ -5,12 +5,13 @@ Counterparts of vkresample_tpu/ops/cas_pallas.py:
   K1 cas_parity4_planes_u2  quad-parity CAS (u=2 quad route)   csrc/cas_quad.cu
   K2 cas_parity_planes_u2   rows-parity CAS (u=2 rows route)   csrc/cas_parity.cu
   K3 cas_quantize           woven CAS (cas_quantize_pallas)    csrc/cas_woven.cu
+  K4 cas_parity_grid_planes grid-parity CAS (u x u planes)     csrc/cas_grid.cu
 
-All three compute the same thing: the 3x3 clamp-to-edge CAS + quantize of
-a woven pre-CAS image, int16 Q2.14 or float32, to uint8.  K1 and K2 take
-that image as parity planes and return uint8 planes of the same layout, so
-the woven image never exists on the device.  One plain version,
-``cas_quantize_reference``, holds the arithmetic; K1's and K2's plain
+All four compute the same thing: the 3x3 clamp-to-edge CAS + quantize of
+a woven pre-CAS image, int16 Q2.14 or float32, to uint8.  K1, K2 and K4
+take that image as parity planes and return uint8 planes of the same
+layout, so the woven image never exists on the device.  One plain version,
+``cas_quantize_reference``, holds the arithmetic; the plane kernels' plain
 versions weave their planes, call it and split the result.  See each
 kernel source's header for its design.
 
@@ -20,10 +21,13 @@ kernel launches in ``.launches``.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from .cas import from_i16_storage
+from .weave import weave_grid
 
 _DTYPES = (torch.int16, torch.float32)
 
@@ -204,3 +208,50 @@ def cas_parity4_planes_u2(P00, P01, P10, P11, sharpen: float):
 
 
 cas_parity4_planes_u2.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: grid-parity CAS (u x u phase planes)
+# ---------------------------------------------------------------------------
+
+GRID_MAX_U = 8  # csrc/cas_grid.cu kMaxU
+
+
+def cas_parity_grid_planes_reference(planes, u: int, sharpen: float):
+    """Plain PyTorch version of the grid CAS kernel, on any device: weave
+    the u*u planes P[ry][rx] (row-major, each (..., h, W)) to (..., u*h,
+    u*W) in their stored dtype, run the woven CAS, split into the u*u
+    phase planes."""
+    planes = tuple(planes)
+    _check("grid CAS", planes)
+    out = cas_quantize_reference(weave_grid(planes, u), sharpen)
+    return tuple(out[..., ry::u, rx::u].contiguous() for ry in range(u) for rx in range(u))
+
+
+def cas_parity_grid_planes(planes, u: int, sharpen: float):
+    """u-generic grid-parity fused CAS: u*u pre-CAS phase planes (row-major
+    (ry, rx), each (..., h, W)), int16 Q2.14 or float32, to u*u uint8
+    planes of the same shape.  CUDA tensors go through csrc/cas_grid.cu
+    (u <= GRID_MAX_U), CPU tensors take the plain version."""
+    planes = tuple(planes)
+    if len(planes) != u * u:
+        raise ValueError(f"expected {u * u} planes for u={u}, got {len(planes)}")
+    _check("grid CAS", planes)
+    p0 = planes[0]
+    if p0.device.type == "cpu":
+        return cas_parity_grid_planes_reference(planes, u, sharpen)
+    if not 1 <= u <= GRID_MAX_U:
+        raise ValueError(f"the grid CAS kernel takes 1 <= u <= {GRID_MAX_U}, got {u}")
+    h, W = p0.shape[-2:]
+    outs = tuple(torch.empty(p0.shape, dtype=torch.uint8, device=p0.device) for _ in planes)
+    if p0.numel() == 0:
+        return outs
+    ptrs = ctypes.c_void_p * len(planes)
+    _launch("vkr_cas_grid", p0.device,
+            ptrs(*(p.data_ptr() for p in planes)), ptrs(*(o.data_ptr() for o in outs)),
+            u, p0.numel() // (h * W), h, W, int(p0.dtype == torch.int16), float(sharpen))
+    cas_parity_grid_planes.launches += 1
+    return outs
+
+
+cas_parity_grid_planes.launches = 0

@@ -1,9 +1,8 @@
-"""Device-side uint8 parity weaves (counterpart of
-vkresample_tpu/ops/weave.py).
+"""Device-side parity weaves (counterpart of vkresample_tpu/ops/weave.py).
 
 The JAX package packs column pairs into uint16 lanes because a column
-interleave is a pathological layout op on a TPU; on a GPU either weave is
-one strided copy, so both are written as stack + reshape.
+interleave is a pathological layout op on a TPU; on a GPU every weave is
+one strided copy, so all are written as stack + reshape.
 """
 from __future__ import annotations
 
@@ -34,3 +33,22 @@ def weave_quad_u8(P00, P01, P10, P11) -> torch.Tensor:
     """Four uint8 quad-parity planes (..., h, w), p[row parity][col
     parity], -> woven (..., 2h, 2w) uint8."""
     return weave_rows_u8(weave_cols_u8(P00, P01), weave_cols_u8(P10, P11))
+
+
+def weave_grid(planes, u: int) -> torch.Tensor:
+    """u*u grid-parity planes of any one dtype (row-major (ry, rx), each
+    (..., h, w)) -> woven (..., u*h, u*w), out[..., ry::u, rx::u] =
+    planes[ry*u + rx]."""
+    if len(planes) != u * u:
+        raise ValueError(f"expected {u * u} planes for u={u}, got {len(planes)}")
+    lead, (h, w) = planes[0].shape[:-2], planes[0].shape[-2:]
+    g = torch.stack(tuple(planes), dim=-3).reshape(lead + (u, u, h, w))
+    g = g.movedim(-4, -2).movedim(-4, -1)  # (..., h, ry, w, rx)
+    return g.reshape(lead + (u * h, u * w))
+
+
+def weave_grid_u8(planes, u: int) -> torch.Tensor:
+    """u*u uint8 grid-parity planes (row-major (ry, rx), each (..., h, w))
+    -> woven (..., u*h, u*w) uint8."""
+    _check_u8(*planes)
+    return weave_grid(planes, u)

@@ -1,25 +1,35 @@
 """Single-image upscale pipeline: uint8 image in, uint8 planes or image out
 (counterpart of vkresample_tpu/pipeline/upscale.py).
 
-The port runs the small dense tier (every axis <= DENSE_MAX) of R2C plans
-with CAS sharpen, in fp32 (-p 0) or half storage (-p 2), on two engines.
-The MXU engine (on this card: the dense GEMM form, fft/mxu_pipeline.py)
-takes one of four routes per frame, as the JAX package's _pipeline does:
+The port runs the small dense tier (every axis <= DENSE_MAX) with CAS
+sharpen, R2C and c2c, in fp32 (-p 0) or half storage (-p 2), on two
+engines.  The MXU engine (on this card: the GEMM forms of fft/dense.py and
+fft/staged.py, fft/mxu_pipeline.py) takes one of these routes per frame,
+as the JAX package's _pipeline does:
 
-  quad   u=2, width % 128 == 0, parity-plane consumer (the CLI):
+  quad   r2c u=2, width % 128 == 0, parity-plane consumer (the CLI):
          dense.r2c_quad -> K1 cas_parity4_planes_u2 -> four uint8 planes
-  rows   u=2 otherwise, every woven caller included (upscale()):
+  rows   r2c u=2 otherwise, every woven caller included (upscale()):
          dense.r2c_rows -> K2 cas_parity_planes_u2 -> planes (E, D), woven
          on the device for woven callers
-  rows   integer u >= 3: dense.r2c_rows -> weave_rows -> K3 cas_quantize
-  chain  fractional u and u=1: dense.r2c_chain on the normalized image ->
-         K3 cas_quantize
+  rows   r2c integer u >= 3: dense.r2c_rows -> weave_rows -> K3 cas_quantize
+  chain  r2c fractional u and u=1: dense.r2c_chain on the normalized image
+         -> K3 cas_quantize
+  grid   c2c with p <= 4 phases (integer u >= 2 or a fraction p/q):
+         staged.c2c_grid_staged -> p^2 magnitude planes -> K1 at p=2, K4
+         cas_parity_grid_planes at p >= 3 -> p^2 uint8 planes, woven on the
+         device for woven callers
+  chain  c2c otherwise (u=1, p > 4): dense.c2c_chain -> K3 cas_quantize
 
-In half storage the pre-CAS planes are int16 Q2.14 and the y GEMM reads
-the stored planes; the chain keeps float32 (the JAX generic branch has no
+In half storage the pre-CAS planes are int16 Q2.14 and the y GEMMs read
+the stored planes; the chains keep float32 (the JAX generic branch has no
 storage codec).  The XLA engine (-engine xla, the reference tier) runs
-torch.fft on the materialized big spectrum -> K3.  fp64, c2c and axes over
+torch.fft on the materialized big spectrum -> K3.  fp64 and axes over
 DENSE_MAX raise NotImplementedError naming their ROADMAP.md item.
+
+Every entry point runs on the current CUDA device unless the caller names
+another (``device="cpu"`` runs the kernels' plain versions); without a
+CUDA device and without that request it raises RuntimeError.
 
 Numerics: every float32 GEMM runs in full fp32.  PyTorch's default already
 keeps TF32 off for matmuls, but cuDNN's default is on; both are set off
@@ -34,13 +44,18 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..core.config import Engine, Precision
+from ..core.config import Engine, Precision, resolve_device
 from ..core.plan import DENSE_MAX, UpscalePlan
-from ..fft import dense, mxu_pipeline
+from ..fft import dense, mxu_pipeline, staged
 from ..ops import cas as cas_ops
-from ..ops.cas_cuda import cas_parity4_planes_u2, cas_parity_planes_u2, cas_quantize
+from ..ops.cas_cuda import (
+    cas_parity4_planes_u2,
+    cas_parity_grid_planes,
+    cas_parity_planes_u2,
+    cas_quantize,
+)
 from ..ops.spectrum import assemble_big_spectrum
-from ..ops.weave import weave_rows_u8
+from ..ops.weave import weave_grid_u8, weave_rows_u8
 
 
 def _irfft2(G: torch.Tensor, H: int, W: int) -> torch.Tensor:
@@ -60,8 +75,12 @@ def _irfft2(G: torch.Tensor, H: int, W: int) -> torch.Tensor:
 def _precas_xla(x: torch.Tensor, plan: UpscalePlan) -> torch.Tensor:
     """(..., h, w) normalized image -> (..., H, W) pre-CAS image in CAS
     units: the reference tier, torch.fft on the materialized big spectrum
-    with the u^2 factor taken in float32 (upscale.py:28-41)."""
+    with the u^2 factor taken in float32 (upscale.py:28-41).  c2c takes
+    the complex magnitude, which CAS consumes (VkResample.cpp:904)."""
     u2 = float(np.float32(float(np.float32(plan.upscale)) ** 2))
+    if not plan.r2c:
+        G = assemble_big_spectrum(torch.fft.fft2(x), plan)
+        return u2 * torch.abs(torch.fft.ifft2(G))
     G = assemble_big_spectrum(torch.fft.rfft2(x), plan)
     return u2 * _irfft2(G, plan.H, plan.W)
 
@@ -88,8 +107,6 @@ def unsupported_reason(plan: UpscalePlan) -> Optional[str]:
     that ports it), or None when the plan is on the ported tiers."""
     if plan.precision is Precision.DOUBLE:
         return "fp64 (-p 1) is not ported yet (ROADMAP.md modules item 6)"
-    if not plan.r2c:
-        return "the c2c spectrum path is not ported yet (ROADMAP.md modules item 6)"
     if max(plan.h, plan.w, plan.H, plan.W) > DENSE_MAX:
         return (
             f"axes over {DENSE_MAX} ({plan.h}x{plan.w} -> {plan.H}x{plan.W}) "
@@ -101,9 +118,13 @@ def unsupported_reason(plan: UpscalePlan) -> Optional[str]:
 def planes_format(plan: UpscalePlan) -> Optional[str]:
     """Output layout of the planes_out pipeline: 'quad' = four (C, H/2,
     W/2) planes p[row parity][col parity]; 'rows' = (E, D), each (C, H/2,
-    W), the even and odd output rows; None = woven output only."""
+    W), the even and odd output rows; 'grid' = p^2 (C, H/p, W/p) planes
+    row-major (ry, rx) (c2c grid route, p=2 included); None = woven output
+    only."""
     if unsupported_reason(plan) is not None or plan.resolve_engine() is not Engine.MXU:
         return None
+    if not plan.r2c:
+        return "grid" if mxu_pipeline.c2c_grid_selected(plan) else None
     return _parity_route(plan)
 
 
@@ -133,14 +154,27 @@ def _pipeline(img_u8: torch.Tensor, banks, plan: UpscalePlan, engine: Engine,
     planes_format(plan) (planes_out), or the woven (H, W, C) uint8 image
     ((C, H, W) when planar_out)."""
     x_raw = img_u8.permute(2, 0, 1).contiguous()  # planar (C, h, w), like the reference
-    if banks is not None and "Ymat_ns" in banks:
+    codec = (
+        dict(store=cas_ops.to_i16_storage, load=cas_ops.from_i16_storage)
+        if plan.precision is Precision.HALF
+        else {}
+    )
+    if banks is not None and "cg_ay" in banks:
+        # c2c grid: raw uint8 feeds the staged convolutions (/255 folded
+        # into the x banks); the p^2 magnitude planes go to the fused
+        # per-parity CAS
+        u = staged.c2c_grid_u(banks)
+        Ps = staged.c2c_grid_staged(x_raw, banks, **codec)
+        if u == 2:
+            Pu8 = cas_parity4_planes_u2(*Ps, plan.sharpen)
+        else:
+            Pu8 = cas_parity_grid_planes(Ps, u, plan.sharpen)
+        if planes_out:
+            return Pu8
+        out = weave_grid_u8(Pu8, u)
+    elif banks is not None and "Ymat_ns" in banks:
         # row-split fast paths: raw uint8 feeds the x GEMM (/255 folded
         # into the banks), the y GEMM emits the non-sample rows
-        codec = (
-            dict(store=cas_ops.to_i16_storage, load=cas_ops.from_i16_storage)
-            if plan.precision is Precision.HALF
-            else {}
-        )
         fmt = _parity_route(plan)
         if fmt == "quad" and planes_out:
             return cas_parity4_planes_u2(*dense.r2c_quad(x_raw, banks, **codec), plan.sharpen)
@@ -195,13 +229,9 @@ def build_upscale(plan: UpscalePlan, device=None, planes_out: bool = False,
     to the woven (H, W, C) uint8 image ((C, H, W) when planar_out), on
     `device`.
 
-    device: a torch device (default: cuda when available, else cpu)."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return _build(plan, device, bool(planes_out), bool(planar_out))
+    device: a torch device (default: the current CUDA device; RuntimeError
+    when there is none; "cpu" runs the kernels' plain versions)."""
+    return _build(plan, resolve_device(device), bool(planes_out), bool(planar_out))
 
 
 def upscale(
@@ -215,7 +245,8 @@ def upscale(
     device=None,
 ) -> torch.Tensor:
     """Convenience entry: upscale one (h, w, C) uint8 image (numpy array or
-    tensor).  Returns the (H, W, C) uint8 tensor on the device."""
+    tensor).  Returns the (H, W, C) uint8 tensor on the device (default:
+    the current CUDA device, see build_upscale)."""
     img = torch.as_tensor(img)
     if img.dtype != torch.uint8:
         raise TypeError(f"expected uint8 image, got {img.dtype}")

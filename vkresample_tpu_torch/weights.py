@@ -8,21 +8,37 @@ u=2, ``alpha_odd = alpha_odd_hi + alpha_odd_lo`` (exact in float32).
 chain banks (r2c_chain_banks: ``alpha``, ``Ymat``, ``Y1``, ``beta``).  The
 TPU's int8 digit banks have no counterpart and are dropped.  The tests use
 this to feed both implementations the very same banks.
+
+The c2c banks are plain float arrays and carry over as they are: the c2c
+chain (``Xr``, ``Xi``, ``Yr``, ``Yi``, ``Yrpyi``) and the staged c2c grid
+(``cg_ay``, ``cg_ax`` and every ``cgx{r}_``/``cgy{r}_`` stage bank); the
+grid's ``qb``/``dc0`` entries serve the JAX package's experimental stage
+codecs only and are dropped.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .core.config import resolve_device
+
 _SPLIT = ("alpha", "alpha_odd")  # bf16 hi|lo pairs in the JAX row-split banks
-_PLAIN = ("alpha", "Ymat_ns", "Ymat", "Y1n", "Y1", "beta")
+_PLAIN = ("alpha", "Ymat_ns", "Ymat", "Y1n", "Y1", "beta",
+          "Xr", "Xi", "Yr", "Yi", "Yrpyi", "cg_ay", "cg_ax")
+_STAGE = ("_b1", "_m", "_b3")  # staged convolution banks of fft/staged.conv_banks
+
+
+def _plain(key: str) -> bool:
+    return key in _PLAIN or (key.startswith(("cgx", "cgy")) and key.endswith(_STAGE))
 
 
 def banks_from_jax(banks: dict, device=None) -> dict:
-    """JAX bank dict (numpy arrays) -> the port's float32 device banks."""
+    """JAX bank dict (numpy arrays) -> the port's float32 banks on `device`
+    (default: the current CUDA device; RuntimeError without one)."""
+    device = resolve_device(device)
     out = {}
-    for key in _PLAIN:
-        if key in banks:
+    for key in banks:
+        if _plain(key):
             out[key] = np.asarray(banks[key]).astype(np.float32)
     for key in _SPLIT:
         if key + "_hi" in banks:
