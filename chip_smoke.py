@@ -11,7 +11,11 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
   3. kernels  each kernel against its plain PyTorch version on seeded
               inputs at its routes' shapes and small odd ones, int16 and
               f32 (<= 1 u8 LSB, >= 99.9 % of pixels identical); K4 at
-              u = 3 (full size) and u = 3, 4, 5, 7 (odd shape)
+              u = 3 (full size) and u = 3, 4, 5, 7 (odd shape); K5 at u = 3
+              (full size) and u = 2, 3, 4, 5 (odd shape), identical on every
+              pixel to its plain version and to weave_rows + K3; K8 and K9
+              at both fused-y frames with the frame's y bank and at odd
+              shapes (h = 1, 37; W = 200) with T2 present and absent
   4. routes   each route through the entry point a user calls
               (build_upscale(plan, planes_out=True) as the CLI does, or
               upscale()) against the fp64 oracle (<= 1 LSB); every
@@ -21,7 +25,8 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
                 quad     2048x1024 -> 4096x2048 u=2, -p 2 and -p 0    K1
                 rows     1440x1080 -> 2880x2160 u=2, -p 2 and -p 0    K2
                 woven    upscale() 2048x1024 -> 4096x2048, -p 2       K2
-                u=3      1280x720 -> 3840x2160, -p 2 and -p 0         K3
+                u=3      1280x720 -> 3840x2160, -p 2 and -p 0         K5
+                u=4      960x540 -> 3840x2160, -p 2                   K5
                 chain    1280x720 -> 1920x1080 at 1.5x, -p 0          K3
                 xla      -engine xla 1920x1080 -> 3840x2160, -p 0     K3
                 c2c grid u=2  2048x1024 -> 4096x2048, -p 2           K1
@@ -30,18 +35,30 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
                 c2c woven upscale() u=3 1280x720, -p 2               K4
                 c2c chain 2.5x 1280x720 -> 3200x1800, -p 0           K3
                 xla c2c  -engine xla 1920x1080 -> 3840x2160, -p 0    K3
+              then the fused-y runs, the rows route's x pass
+              (dense.r2c_x_only) followed by a fused y-GEMM + CAS kernel,
+              against the oracle (<= 1 LSB) and the rows route's output
+              (<= 1 LSB; >= 99.9 % identical in -p 0, >= 99.5 % in -p 2,
+              where the route rounds O to Q2.14 and the fused kernel does
+              not), same counter rule:
+                fused y  1440x1080 -> 2880x2160, -p 2 and -p 0        K8
+                fused y  2048x1024 -> 4096x2048, -p 2                 K9
   5. CLI      python -m vkresample_tpu_torch on the samples (-validate),
               the 256x128 sample at u=2 and u=1.5 against its golden PNGs
               (<= 1 LSB), a frame whose width is not a multiple of 128,
               and -c2c at u=2 (1920x1080 sample) and u=3 (600x400 frame)
-  6. times    ms/frame of every route (-n 20, CUDA events), each kernel
-              against its plain version, and the device grid weave
+  6. times    ms/frame of every route and fused-y run (-n 20, CUDA
+              events), each kernel against its plain version, the unfused
+              forms K5, K8 and K9 replace (weave_rows + K3; torch.matmul y
+              GEMM, Q2.14 store in -p 2, + K2, woven for K9), and the device
+              grid weave
 
 The line before the card's line lists each kernel with its launches over
 the routes, its worst difference, its time, its plain version's time and
 its bound: the larger of the bytes it must move (inputs read once, outputs
-written once) over 3.35 TB/s and ~40 fp32 operations per output pixel over
-67 TFLOP/s (H100 SXM).  No single PyTorch call computes CAS, so
+written once) over 3.35 TB/s and its fp32 operations (~40 per output pixel
+for the CAS, plus 2*C*h*(h+r)*W for the fused y GEMM) over 67 TFLOP/s (H100
+SXM).  No single PyTorch call computes CAS, with or without the GEMM, so
 library_ms is null.  It imports nothing of JAX.  The last stdout line is
 the result JSON.
 """
@@ -57,6 +74,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 TOL_LSB = 1
 MIN_IDENTICAL = 0.999
+MIN_IDENTICAL_VS_Q214_ROUTE = 0.995  # fused y vs the -p 2 rows route (O Q2.14 there)
 C = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
@@ -69,8 +87,9 @@ ROUTES = {
     "rows -p 2": ((1080, 1440), 2.0, "HALF", "AUTO", True, "planes", {"K2"}),
     "rows -p 0": ((1080, 1440), 2.0, "SINGLE", "AUTO", True, "planes", {"K2"}),
     "woven upscale() -p 2": ((1024, 2048), 2.0, "HALF", "AUTO", True, "woven", {"K2"}),
-    "u=3 -p 2": ((720, 1280), 3.0, "HALF", "AUTO", True, "woven", {"K3"}),
-    "u=3 -p 0": ((720, 1280), 3.0, "SINGLE", "AUTO", True, "woven", {"K3"}),
+    "u=3 -p 2": ((720, 1280), 3.0, "HALF", "AUTO", True, "woven", {"K5"}),
+    "u=3 -p 0": ((720, 1280), 3.0, "SINGLE", "AUTO", True, "woven", {"K5"}),
+    "u=4 -p 2": ((540, 960), 4.0, "HALF", "AUTO", True, "woven", {"K5"}),
     "chain 1.5x -p 0": ((720, 1280), 1.5, "SINGLE", "AUTO", True, "woven", {"K3"}),
     "xla -p 0": ((1080, 1920), 2.0, "SINGLE", "XLA", True, "woven", {"K3"}),
     "c2c grid u=2 -p 2": ((1024, 2048), 2.0, "HALF", "AUTO", False, "planes", {"K1"}),
@@ -80,6 +99,13 @@ ROUTES = {
     "c2c woven upscale() u=3 -p 2": ((720, 1280), 3.0, "HALF", "AUTO", False, "woven", {"K4"}),
     "c2c chain 2.5x -p 0": ((720, 1280), 2.5, "SINGLE", "AUTO", False, "woven", {"K3"}),
     "xla c2c -p 0": ((1080, 1920), 2.0, "SINGLE", "XLA", False, "woven", {"K3"}),
+}
+
+# fused-y run -> ((h, w), precision, its kernel, the u=2 route it is held against)
+FUSED = {
+    "fused y K8 -p 2": ((1080, 1440), "HALF", "K8", "rows -p 2"),
+    "fused y K8 -p 0": ((1080, 1440), "SINGLE", "K8", "rows -p 0"),
+    "fused y K9 -p 2": ((1024, 2048), "HALF", "K9", "woven upscale() -p 2"),
 }
 
 
@@ -135,18 +161,59 @@ def woven_hwc(out, fmt, plan):
     if fmt == "rows":
         e, d = (p.cpu().numpy() for p in out)
         return np.moveaxis(np.stack([e, d], axis=2).reshape(C, plan.H, plan.W), 0, -1)
+    if fmt == "planar":
+        return np.moveaxis(out.cpu().numpy(), 0, -1)
     return out.cpu().numpy()
 
 
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the fp32 operations over the fp32 peak."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def cas_bound(shape, n_planes: int, in_bytes: int):
-    """(bound_ms, bound_by) of a CAS kernel on n_planes input planes of
-    `shape` giving as many uint8 planes."""
+    """Bound of a CAS kernel on n_planes input planes of `shape` giving as
+    many uint8 pixels."""
     px = n_planes
     for d in shape:
         px *= d
-    t_bytes = px * (in_bytes + 1) / HBM_BYTES_PER_S
-    t_ops = px * CAS_OPS_PER_PIXEL / FP32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    return bound(px * (in_bytes + 1), px * CAS_OPS_PER_PIXEL)
+
+
+def ycas_bound(U, T2, YT):
+    """Bound of a fused y-GEMM + CAS kernel: U, T2 and YT read once, 2*C*h*W
+    uint8 written; the y GEMM's 2*C*h*(h+r)*W operations plus the CAS."""
+    h, K = YT.shape
+    chw = U.numel()
+    n_bytes = (chw * U.element_size() + (0 if T2 is None else T2.numel() * 4)
+               + YT.numel() * 4 + 2 * chw)
+    return bound(n_bytes, 2 * chw * K + 2 * chw * CAS_OPS_PER_PIXEL)
+
+
+def fused_y_fn(plan, dev, kid: str):
+    """The fused-y frame of a u=2 plan on `dev`, (h, w, C) uint8 image ->
+    the rows route's x pass (dense.r2c_x_only; U stored as Q2.14 in -p 2),
+    then K8 (the planes E, D) or K9 (the woven (C, 2h, W) image)."""
+    import torch
+
+    from vkresample_tpu_torch import Engine, Precision
+    from vkresample_tpu_torch.fft import dense
+    from vkresample_tpu_torch.ops import ycas_cuda
+    from vkresample_tpu_torch.ops.cas import to_i16_storage
+    from vkresample_tpu_torch.pipeline.upscale import make_device_banks
+
+    banks = make_device_banks(plan, Engine.MXU, dev, planes_out=False)
+    YT = torch.from_numpy(dense.ycas_bank(plan)).to(dev)
+    kernel = ycas_cuda.ycas_parity_u2 if kid == "K8" else ycas_cuda.ycas_u2
+    half = plan.precision is Precision.HALF
+
+    def frame(img):
+        U, T2 = dense.r2c_x_only(img.permute(2, 0, 1).contiguous(), banks)
+        return kernel(to_i16_storage(U) if half else U, T2, YT, plan.sharpen)
+
+    return frame
 
 
 def main() -> int:
@@ -161,57 +228,136 @@ def main() -> int:
     print(f"[1 device] {card}  torch {torch.__version__} cuda {torch.version.cuda}")
 
     from vkresample_tpu_torch import Engine, Precision, UpscalePlan, _build, build_upscale, upscale
+    from vkresample_tpu_torch.fft import dense
     from vkresample_tpu_torch.io.png import read_png, write_png
-    from vkresample_tpu_torch.ops import cas_cuda
+    from vkresample_tpu_torch.ops import cas_cuda, ycas_cuda
     from vkresample_tpu_torch.ops.cas import to_i16_storage
-    from vkresample_tpu_torch.ops.weave import weave_grid_u8
+    from vkresample_tpu_torch.ops.weave import weave_grid_u8, weave_rows_u8
     from vkresample_tpu_torch.oracle.numpy_ref import upscale_oracle
     from vkresample_tpu_torch.pipeline.timing import time_amortized
     from vkresample_tpu_torch.pipeline.upscale import planes_format
 
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ybanks = {}
+
+    def ybank(h, w):
+        """The y bank of the u=2 frame (h, w) on the card, built once."""
+        if (h, w) not in ybanks:
+            plan = UpscalePlan(h=h, w=w, upscale=2.0)
+            ybanks[(h, w)] = torch.from_numpy(dense.ycas_bank(plan)).to(dev)
+        return ybanks[(h, w)]
+
+    def planes(shape, n, dtype):
+        """n seeded pre-CAS planes over [-0.1, 1.2), Q2.14-stored for int16."""
+        ps = [torch.rand(shape, generator=gen, device=dev) * 1.3 - 0.1 for _ in range(n)]
+        return [to_i16_storage(p) for p in ps] if dtype == torch.int16 else ps
+
+    def grid_args(case, dt):
+        shape, u = case
+        return planes(shape, u * u, dt), u
+
+    def rows_args(case, dt):
+        (c, h, W), u = case
+        return planes((c, h, W), 1, dt)[0], planes((c, h * (u - 1), W), 1, dt)[0], u
+
+    def ycas_args(case, dt):
+        """(U, T2, YT): r None = the frame's own y bank, else a random bank
+        with r correction rows."""
+        (c, h, W), r = case
+        if r is None:
+            YT = ybank(h, W // 2)
+        else:
+            YT = torch.randn((h, h + r), generator=gen, device=dev) * (0.6 / (h + r) ** 0.5)
+        r = YT.shape[1] - h
+        T2 = torch.rand((c, r, W), generator=gen, device=dev) * 0.1 - 0.05 if r else None
+        return planes((c, h, W), 1, dt)[0], T2, YT
+
+    def ycas_unfused(U, T2, YT, sharpen):
+        """The unfused form of K8: the torch.matmul y GEMM (O stored as Q2.14
+        in -p 2, as the rows route does) + K2."""
+        O = ycas_cuda.ycas_odd_rows_reference(U, T2, YT)[1]
+        return cas_cuda.cas_parity_planes_u2(U, to_i16_storage(O) if U.dtype == torch.int16
+                                             else O, sharpen)
+
+    # kernel id -> name, wrapper, plain version, sources, argument cases
+    # (the first is the route shape, timed in phase 6), argument maker,
+    # bound from the arguments; exact: identical to the plain version on
+    # every pixel; unfused: the unfused form it replaces, timed in phase 6
     kernels = {
         "K1": dict(
             name="cas_parity4_planes_u2", fn=cas_cuda.cas_parity4_planes_u2,
-            plain=cas_cuda.cas_parity4_planes_u2_reference, n_in=4,
+            plain=cas_cuda.cas_parity4_planes_u2_reference,
             source="vkresample_tpu_torch/csrc/cas_quad.cu",
             replaces="vkresample_tpu/ops/cas_pallas.py:1432",
-            shapes=[(C, 1024, 2048), (2, 37, 200)],
+            cases=[(C, 1024, 2048), (2, 37, 200)],
+            args=lambda case, dt: planes(case, 4, dt),
+            bound=lambda a: cas_bound(a[0].shape, 4, a[0].element_size()),
         ),
         "K2": dict(
             name="cas_parity_planes_u2", fn=cas_cuda.cas_parity_planes_u2,
-            plain=cas_cuda.cas_parity_planes_u2_reference, n_in=2,
+            plain=cas_cuda.cas_parity_planes_u2_reference,
             source="vkresample_tpu_torch/csrc/cas_parity.cu",
             replaces="vkresample_tpu/ops/cas_pallas.py:777",
-            shapes=[(C, 1080, 2880), (2, 37, 200)],
+            cases=[(C, 1080, 2880), (2, 37, 200)],
+            args=lambda case, dt: planes(case, 2, dt),
+            bound=lambda a: cas_bound(a[0].shape, 2, a[0].element_size()),
         ),
         "K3": dict(
             name="cas_quantize", fn=cas_cuda.cas_quantize,
-            plain=cas_cuda.cas_quantize_reference, n_in=1,
+            plain=cas_cuda.cas_quantize_reference,
             source="vkresample_tpu_torch/csrc/cas_woven.cu",
             replaces="vkresample_tpu/ops/cas_pallas.py:543",
-            shapes=[(C, 2160, 3840), (2, 37, 201)],
+            cases=[(C, 2160, 3840), (2, 37, 201)],
+            args=lambda case, dt: planes(case, 1, dt),
+            bound=lambda a: cas_bound(a[0].shape, 1, a[0].element_size()),
         ),
         "K4": dict(
             name="cas_parity_grid_planes", fn=cas_cuda.cas_parity_grid_planes,
             plain=cas_cuda.cas_parity_grid_planes_reference,
             source="vkresample_tpu_torch/csrc/cas_grid.cu",
             replaces="vkresample_tpu/ops/cas_pallas.py:2152",
-            shapes=[(C, 720, 1280), (2, 37, 200)], us=[3, 3, 4, 5, 7],
+            cases=[((C, 720, 1280), 3)] + [((2, 37, 200), u) for u in (3, 4, 5, 7)],
+            args=grid_args,
+            bound=lambda a: cas_bound(a[0][0].shape, a[1] ** 2, a[0][0].element_size()),
+        ),
+        "K5": dict(
+            name="cas_quantize_rows_u", fn=cas_cuda.cas_quantize_rows_u,
+            plain=cas_cuda.cas_quantize_rows_u_reference,
+            source="vkresample_tpu_torch/csrc/cas_rows.cu",
+            replaces="vkresample_tpu/ops/cas_pallas.py:473",
+            cases=[((C, 720, 3840), 3)] + [((2, 37, 200), u) for u in (2, 3, 4, 5)],
+            args=rows_args,
+            bound=lambda a: cas_bound(a[0].shape[:-2] + (a[2] * a[0].shape[-2], a[0].shape[-1]),
+                                      1, a[0].element_size()),
+            exact=True,
+            unfused=lambda U, O, u, s: cas_cuda.cas_quantize(dense.weave_rows(U, O, u), s),
+        ),
+        "K8": dict(
+            name="ycas_parity_u2", fn=ycas_cuda.ycas_parity_u2,
+            plain=ycas_cuda.ycas_parity_u2_reference,
+            source="vkresample_tpu_torch/csrc/ycas.cu",
+            replaces="vkresample_tpu/ops/ycas_pallas.py:406",
+            cases=[((C, 1080, 2880), None), ((C, 1024, 4096), None), ((2, 37, 200), 0),
+                   ((2, 37, 200), 2), ((2, 1, 200), 1), ((2, 1, 200), 0)],
+            args=ycas_args, bound=lambda a: ycas_bound(*a), unfused=ycas_unfused,
+        ),
+        "K9": dict(
+            name="ycas_u2", fn=ycas_cuda.ycas_u2, plain=ycas_cuda.ycas_u2_reference,
+            source="vkresample_tpu_torch/csrc/ycas.cu",
+            replaces="vkresample_tpu/ops/ycas_pallas.py:509",
+            cases=[((C, 1024, 4096), None), ((C, 1080, 2880), None), ((2, 37, 200), 0),
+                   ((2, 37, 200), 2), ((2, 1, 200), 1)],
+            args=ycas_args, bound=lambda a: ycas_bound(*a),
+            unfused=lambda *a: weave_rows_u8(*ycas_unfused(*a)),
         ),
     }
-    for k in kernels.values():
-        # (shape, u) cases: the plane kernels' u is fixed, K4's varies
-        k["cases"] = ([(k["shapes"][0], k["us"][0])] + [(k["shapes"][1], u) for u in k["us"][1:]]
-                      if "us" in k else [(shape, None) for shape in k["shapes"]])
 
-    def call(k, which, ins, u):
-        """Kernel (which="fn") or plain version ("plain") on the planes;
-        always a tuple of uint8 planes."""
-        out = k[which](ins, u, 0.2) if u is not None else k[which](*ins, 0.2)
+    def call(k, which, args):
+        """Kernel (which="fn"), plain version ("plain") or unfused form
+        ("unfused") on the arguments; always a tuple of uint8 tensors."""
+        out = k[which](*args, 0.2)
         return out if isinstance(out, tuple) else (out,)
-
-    def n_in(k, u):
-        return u * u if u is not None else k["n_in"]
 
     # 2. build
     t0 = time.perf_counter()
@@ -223,37 +369,52 @@ def main() -> int:
     )
 
     # 3. each kernel against its plain version at its routes' shapes
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-
-    def pre_cas(shape, n):
-        return [torch.rand(shape, generator=gen, device=dev) * 1.3 - 0.1 for _ in range(n)]
-
     for kid, k in kernels.items():
         k["max_abs_err"] = 0
-        for shape, u in k["cases"]:
-            base = pre_cas(shape, n_in(k, u))
-            for ins in (base, [to_i16_storage(p) for p in base]):
-                got = call(k, "fn", ins, u)
+        for case in k["cases"]:
+            for dt in (torch.float32, torch.int16):
+                args = k["args"](case, dt)
+                got = call(k, "fn", args)
                 torch.cuda.synchronize()
-                want = call(k, "plain", ins, u)
-                d, same = u8_diff(got, want)
-                print(f"[3 kernels] {kid} {k['name']} {shape}{'' if u is None else f' u={u}'} "
-                      f"{ins[0].dtype}: max|diff| {d} LSB, identical {same:.6f}")
+                d, same = u8_diff(got, call(k, "plain", args))
+                print(f"[3 kernels] {kid} {k['name']} {case} {dt}: max|diff| {d} LSB, "
+                      f"identical {same:.6f}")
+                if k.get("exact"):
+                    require(d == 0, f"{kid} differs from its plain version at {case}")
+                    d3, _ = u8_diff(got, call(k, "unfused", args))
+                    print(f"[3 kernels] {kid} {case} {dt} vs weave_rows + K3: max|diff| {d3} LSB")
+                    require(d3 == 0, f"{kid} differs from weave_rows + K3 at {case}")
                 require(d <= TOL_LSB and same >= MIN_IDENTICAL,
-                        f"{kid} disagrees with its plain version at {shape}")
+                        f"{kid} disagrees with its plain version at {case}")
                 k["max_abs_err"] = max(k["max_abs_err"], d)
 
     # 4. every route at full size, through the user's entry points
-    oracles, imgs, fns = {}, {}, {}
+    oracles, imgs, fns, route_out = {}, {}, {}, {}
     for k in kernels.values():
         k["launches"] = 0
+
+    def launches_of(run_name, runs):
+        """Read and check every kernel's counter after a run."""
+        counts = {kid: k["fn"].launches for kid, k in kernels.items()}
+        for kid, n in counts.items():
+            require((n > 0) == (kid in runs),
+                    f"{run_name}: {kid} launched {n} times, expected {'some' if kid in runs else 'none'}")
+            kernels[kid]["launches"] += n
+        return counts
+
+    def zero_counters():
+        for k in kernels.values():
+            k["fn"].launches = 0
+
+    def image(h, w):
+        if (h, w) not in imgs:
+            imgs[(h, w)] = np.random.default_rng(SEED + h + w).integers(0, 256, (h, w, C), np.uint8)
+        return imgs[(h, w)]
+
     for route, ((h, w), u, prec, engine, r2c, entry, runs) in ROUTES.items():
         plan = UpscalePlan(h=h, w=w, upscale=u, precision=Precision[prec], r2c=r2c,
                            engine=Engine[engine])
-        if (h, w) not in imgs:
-            imgs[(h, w)] = np.random.default_rng(SEED + h + w).integers(0, 256, (h, w, C), np.uint8)
-        img = imgs[(h, w)]
+        img = image(h, w)
         key = (h, w, u, r2c)
         if key not in oracles:
             t0 = time.perf_counter()
@@ -262,8 +423,7 @@ def main() -> int:
                   f"{'r2c' if r2c else 'c2c'} in {time.perf_counter() - t0:.3f} s")
         fmt = planes_format(plan) if entry == "planes" else None
         require(entry == "woven" or fmt is not None, f"{route}: no parity planes")
-        for k in kernels.values():
-            k["fn"].launches = 0
+        zero_counters()
         t0 = time.perf_counter()
         if entry == "planes":
             fns[route] = build_upscale(plan, dev, planes_out=True)
@@ -273,8 +433,8 @@ def main() -> int:
             fns[route] = build_upscale(plan, dev)
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
-        counts = {kid: k["fn"].launches for kid, k in kernels.items()}
-        got = woven_hwc(out, fmt, plan)
+        counts = launches_of(route, runs)
+        got = route_out[route] = woven_hwc(out, fmt, plan)
         require(got.shape == (plan.H, plan.W, C) and got.dtype == np.uint8,
                 f"{route}: bad output {got.shape} {got.dtype}")
         d = int(np.abs(got.astype(np.int16) - oracles[key].astype(np.int16)).max())
@@ -282,10 +442,26 @@ def main() -> int:
               f"first frame (banks built, uploaded) in {setup:.3f} s; max|diff| vs fp64 "
               f"oracle {d} LSB; launches {counts}")
         require(d <= TOL_LSB, f"{route} is {d} LSB from the oracle")
-        for kid, n in counts.items():
-            require((n > 0) == (kid in runs),
-                    f"{route}: {kid} launched {n} times, expected {'some' if kid in runs else 'none'}")
-            kernels[kid]["launches"] += n
+
+    # the fused-y runs: the rows route's x pass, then K8 or K9
+    fused_fns = {}
+    for run, ((h, w), prec, kid, against) in FUSED.items():
+        plan = UpscalePlan(h=h, w=w, upscale=2.0, precision=Precision[prec])
+        frame = fused_fns[run] = fused_y_fn(plan, dev, kid)
+        x = torch.from_numpy(image(h, w)).to(dev)
+        zero_counters()
+        out = frame(x)
+        torch.cuda.synchronize()
+        counts = launches_of(run, {kid})
+        got = woven_hwc(out, "rows" if kid == "K8" else "planar", plan)
+        d = int(np.abs(got.astype(np.int16) - oracles[(h, w, 2.0, True)].astype(np.int16)).max())
+        dr, same = u8_diff([got], [route_out[against]])
+        bar = MIN_IDENTICAL_VS_Q214_ROUTE if prec == "HALF" else MIN_IDENTICAL
+        print(f"[4 routes] {run}: {w}x{h} -> {plan.W}x{plan.H}, max|diff| vs fp64 oracle {d} "
+              f"LSB; vs route {against}: max|diff| {dr} LSB, identical {same:.6f} "
+              f"(bar {bar}); launches {counts}")
+        require(d <= TOL_LSB, f"{run} is {d} LSB from the oracle")
+        require(dr <= TOL_LSB and same >= bar, f"{run} disagrees with the route {against}")
     for kid, k in kernels.items():
         print(f"[4 routes] {kid} {k['name']} launches over the routes: {k['launches']}")
 
@@ -333,16 +509,24 @@ def main() -> int:
         _, ms = time_amortized(fn, (x,), 20, dev)
         print(f"[6 times] route {route} {w}x{h} x{u}: {ms:.4f} ms/frame "
               f"(-n 20, CUDA events) on {card}")
+    for run, fn in fused_fns.items():
+        (h, w) = FUSED[run][0]
+        x = torch.from_numpy(imgs[(h, w)]).to(dev)
+        _, ms = time_amortized(fn, (x,), 20, dev)
+        print(f"[6 times] {run} {w}x{h} x2 (r2c_x_only + {FUSED[run][2]}): {ms:.4f} ms/frame "
+              f"(-n 20, CUDA events) on {card}")
     for kid, k in kernels.items():
-        shape, u = k["cases"][0]
-        base = pre_cas(shape, n_in(k, u))
-        for ins in ([to_i16_storage(p) for p in base], base):
-            ms = cuda_ms(lambda: call(k, "fn", ins, u), 50)
-            plain_ms = cuda_ms(lambda: call(k, "plain", ins, u), 10)
-            bound_ms, bound_by = cas_bound(shape, n_in(k, u), ins[0].element_size())
-            print(f"[6 times] {kid} {k['name']} {n_in(k, u)} x {shape} {ins[0].dtype}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}) on {card}")
+        case = k["cases"][0]
+        for dt in (torch.int16, torch.float32):
+            args = k["args"](case, dt)
+            ms = cuda_ms(lambda: call(k, "fn", args), 50)
+            plain_ms = cuda_ms(lambda: call(k, "plain", args), 10)
+            bound_ms, bound_by = k["bound"](args)
+            extra = ""
+            if "unfused" in k:
+                extra = f", unfused form {cuda_ms(lambda: call(k, 'unfused', args), 50):.4f} ms"
+            print(f"[6 times] {kid} {k['name']} {case} {dt}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms{extra}, bound {bound_ms:.4f} ms ({bound_by}) on {card}")
             for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
                            ("bound_by", bound_by)):
                 k.setdefault(key, v)  # the int16 reading goes into the JSON line

@@ -1,12 +1,12 @@
 """Where a frame's time goes on the card, per route of the PyTorch port.
 
     python3 scripts/torch_route_profile.py                 # the c2c routes
-    python3 scripts/torch_route_profile.py all             # every route
-    python3 scripts/torch_route_profile.py "quad -p 2" ...  # named routes
+    python3 scripts/torch_route_profile.py all             # every route and run
+    python3 scripts/torch_route_profile.py "quad -p 2" ...  # named routes or runs
 
-The routes are chip_smoke.py's (full frame sizes, 3 channels, a seeded
-random frame already on the device).  For each it prints, with the card's
-name and power limit:
+The routes and the fused-y runs are chip_smoke.py's ROUTES and FUSED (full
+frame sizes, 3 channels, a seeded random frame already on the device).  For
+each it prints, with the card's name and power limit:
 
   ms/frame      -n 20 through the entry point, CUDA events (as chip_smoke)
   graph         the same frame captured once in a CUDA graph and replayed
@@ -62,18 +62,31 @@ def _graph_ms(fn, x, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
-def profile_route(name, route, dev, card) -> None:
+def route_fn(name, dev):
+    """(plan, frame function) of a chip_smoke route or fused-y run."""
+    from chip_smoke import FUSED, ROUTES, fused_y_fn
+
+    from vkresample_tpu_torch import Engine, Precision, UpscalePlan, build_upscale
+
+    if name in FUSED:
+        (h, w), prec, kid, _ = FUSED[name]
+        plan = UpscalePlan(h=h, w=w, upscale=2.0, precision=Precision[prec])
+        return plan, fused_y_fn(plan, dev, kid)
+    (h, w), u, prec, engine, r2c, entry, _ = ROUTES[name]
+    plan = UpscalePlan(h=h, w=w, upscale=u, precision=Precision[prec], r2c=r2c,
+                       engine=Engine[engine])
+    return plan, build_upscale(plan, dev, planes_out=entry == "planes")
+
+
+def profile_route(name, dev, card) -> None:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from vkresample_tpu_torch import Engine, Precision, UpscalePlan, build_upscale
     from vkresample_tpu_torch.pipeline.timing import time_amortized
 
-    (h, w), u, prec, engine, r2c, entry, _ = route
-    plan = UpscalePlan(h=h, w=w, upscale=u, precision=Precision[prec], r2c=r2c,
-                       engine=Engine[engine])
-    fn = build_upscale(plan, dev, planes_out=entry == "planes")
+    plan, fn = route_fn(name, dev)
+    h, w = plan.h, plan.w
     img = np.random.default_rng(20261016 + h + w).integers(0, 256, (h, w, 3), np.uint8)
     x = torch.from_numpy(img).to(dev)
     _, ms = time_amortized(fn, (x,), 20, dev)
@@ -109,15 +122,15 @@ def main(argv) -> int:
         print("no CUDA device: this profile needs one GPU")
         return 1
     sys.path.insert(0, ROOT)
-    from chip_smoke import ROUTES
+    from chip_smoke import FUSED, ROUTES
 
     names = ([n for n in ROUTES if "c2c" in n] if not argv
-             else list(ROUTES) if argv == ["all"] else argv)
+             else list(ROUTES) + list(FUSED) if argv == ["all"] else argv)
     card = _card()
     print(f"{card}  torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
     for name in names:
-        profile_route(name, ROUTES[name], dev, card)
+        profile_route(name, dev, card)
     return 0
 
 

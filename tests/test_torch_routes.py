@@ -44,6 +44,7 @@ _JCODEC = dict(store=jcas.to_i16_storage, load=jcas.from_i16_storage)
 ROUTES = [
     (48, 96, 2.0, Engine.AUTO, "rows u=2"),
     (32, 64, 3.0, Engine.AUTO, "rows u=3"),
+    (32, 48, 4.0, Engine.AUTO, "rows u=4"),
     (32, 64, 1.5, Engine.AUTO, "chain"),
     (36, 50, 1.0, Engine.AUTO, "chain u=1"),
     (32, 64, 2.0, Engine.XLA, "reference tier"),

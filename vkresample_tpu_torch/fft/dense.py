@@ -184,6 +184,19 @@ def r2c_rows_banks(plan, dtype: str = "float64") -> dict:
     return banks
 
 
+def ycas_bank(plan) -> np.ndarray:
+    """The y bank of the fused y-GEMM + CAS kernels (ops/ycas_cuda.py), u=2
+    row-split geometries: YT (h, h + r) float32, built in f64, with
+    YT[:, :h] = Ymat_ns[:h]^T and YT[:, h:] = Ymat_ns[h:]^T, so the odd
+    output rows are O = YT[:, :h] @ U + YT[:, h:] @ T2.  The JAX package's
+    ``ycasYT`` without its zero pad columns (the TPU's sublane pad RPAD)
+    and without its bf16 hi|lo split ``ycasYT2``."""
+    if plan.integer_upscale != 2 or not r2c_rows_supported(plan):
+        raise ValueError(f"the fused y bank needs a u=2 row-split r2c geometry: {plan}")
+    Yns = r2c_rows_banks(plan, "float64")["Ymat_ns"]  # (h + r, h)
+    return np.ascontiguousarray(Yns.T).astype(np.float32)
+
+
 def r2c_chain_banks(plan, dtype: str = "float64") -> dict:
     """Numpy banks of the collapsed r2c chain, any factor: alpha (w, W),
     Ymat = [Ry; Y2] (h + r, H) and, when r > 0, Y1 (h, r) and beta (w, W).

@@ -6,14 +6,18 @@ Counterparts of vkresample_tpu/ops/cas_pallas.py:
   K2 cas_parity_planes_u2   rows-parity CAS (u=2 rows route)   csrc/cas_parity.cu
   K3 cas_quantize           woven CAS (cas_quantize_pallas)    csrc/cas_woven.cu
   K4 cas_parity_grid_planes grid-parity CAS (u x u planes)     csrc/cas_grid.cu
+  K5 cas_quantize_rows_u    fused row weave + woven CAS        csrc/cas_rows.cu
+                            (integer u >= 3 rows route)
 
-All four compute the same thing: the 3x3 clamp-to-edge CAS + quantize of
+All five compute the same thing: the 3x3 clamp-to-edge CAS + quantize of
 a woven pre-CAS image, int16 Q2.14 or float32, to uint8.  K1, K2 and K4
 take that image as parity planes and return uint8 planes of the same
-layout, so the woven image never exists on the device.  One plain version,
-``cas_quantize_reference``, holds the arithmetic; the plane kernels' plain
-versions weave their planes, call it and split the result.  See each
-kernel source's header for its design.
+layout, K5 as the row-split pair (U, O) and returns the woven image, so
+the woven pre-CAS image never exists on the device.  One plain version,
+``cas_quantize_reference``, holds the arithmetic; the other kernels' plain
+versions weave their inputs, call it and split the result.  See each
+kernel source's header for its design.  The fused y-GEMM + CAS kernels K8
+and K9 are in ops/ycas_cuda.py.
 
 Each wrapper runs its kernel on a CUDA tensor (on the current stream; a
 launch error raises) and its plain version on a CPU tensor, and counts its
@@ -26,22 +30,26 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..fft.dense import weave_rows
 from .cas import from_i16_storage
 from .weave import weave_grid
 
 _DTYPES = (torch.int16, torch.float32)
 
 
-def _check(what: str, tensors) -> None:
+def _check(what: str, tensors, shapes=None) -> None:
+    """Raise unless the planes are int16 or float32 of one dtype on one
+    device, contiguous, and of the first plane's shape (or of `shapes`)."""
     t0 = tensors[0]
     if t0.dtype not in _DTYPES:
         raise TypeError(f"{what} takes int16 or float32 planes, got {t0.dtype}")
     if t0.dim() < 2:
         raise ValueError(f"{what} planes need (..., rows, cols), got {tuple(t0.shape)}")
-    for t in tensors[1:]:
-        if t.device != t0.device or t.dtype != t0.dtype or t.shape != t0.shape:
+    shapes = [tuple(s) for s in shapes] if shapes else [tuple(t0.shape)] * len(tensors)
+    for t, shape in zip(tensors[1:], shapes[1:]):
+        if t.device != t0.device or t.dtype != t0.dtype or tuple(t.shape) != shape:
             raise ValueError(
-                f"{what} planes must share device, dtype and shape: "
+                f"{what} planes must share device, dtype and shape (want {shapes}): "
                 f"{[(str(q.device), q.dtype, tuple(q.shape)) for q in tensors]}"
             )
     if any(not t.is_contiguous() for t in tensors):
@@ -255,3 +263,48 @@ def cas_parity_grid_planes(planes, u: int, sharpen: float):
 
 
 cas_parity_grid_planes.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: fused row weave + woven CAS (integer u >= 2 row-split form)
+# ---------------------------------------------------------------------------
+
+
+def _check_rows(U, O, u: int) -> None:
+    if int(u) != u or u < 2:
+        raise ValueError(f"the fused rows CAS takes an integer u >= 2, got {u}")
+    _check("fused rows CAS", (U,))
+    h, W = U.shape[-2:]
+    _check("fused rows CAS", (U, O), (U.shape, U.shape[:-2] + (h * (u - 1), W)))
+
+
+def cas_quantize_rows_u_reference(U, O, u: int, sharpen: float) -> torch.Tensor:
+    """Plain PyTorch version of the fused rows CAS kernel, on any device:
+    weave sample rows U (..., h, W) and non-sample rows O (..., h(u-1), W),
+    O[t(u-1)+k] = out[ut+k+1], to (..., uh, W) in their stored dtype and run
+    the woven CAS."""
+    _check_rows(U, O, u)
+    return cas_quantize_reference(weave_rows(U, O, int(u)), sharpen)
+
+
+def cas_quantize_rows_u(U, O, u: int, sharpen: float) -> torch.Tensor:
+    """Fused row weave + CAS + quantize: sample rows U (..., h, W) and
+    non-sample rows O (..., h(u-1), W), both int16 Q2.14 or both float32,
+    to the woven (..., uh, W) uint8 image; any integer u >= 2.  CUDA
+    tensors go through csrc/cas_rows.cu, CPU tensors take the plain
+    version."""
+    _check_rows(U, O, u)
+    if U.device.type == "cpu":
+        return cas_quantize_rows_u_reference(U, O, u, sharpen)
+    u = int(u)
+    h, W = U.shape[-2:]
+    out = torch.empty(U.shape[:-2] + (u * h, W), dtype=torch.uint8, device=U.device)
+    if U.numel() == 0:
+        return out
+    _launch("vkr_cas_rows_u", U.device, U.data_ptr(), O.data_ptr(), out.data_ptr(),
+            U.numel() // (h * W), h, W, u, int(U.dtype == torch.int16), float(sharpen))
+    cas_quantize_rows_u.launches += 1
+    return out
+
+
+cas_quantize_rows_u.launches = 0

@@ -12,7 +12,8 @@ as the JAX package's _pipeline does:
   rows   r2c u=2 otherwise, every woven caller included (upscale()):
          dense.r2c_rows -> K2 cas_parity_planes_u2 -> planes (E, D), woven
          on the device for woven callers
-  rows   r2c integer u >= 3: dense.r2c_rows -> weave_rows -> K3 cas_quantize
+  rows   r2c integer u >= 3: dense.r2c_rows -> K5 cas_quantize_rows_u (row
+         weave fused into the CAS) -> woven image
   chain  r2c fractional u and u=1: dense.r2c_chain on the normalized image
          -> K3 cas_quantize
   grid   c2c with p <= 4 phases (integer u >= 2 or a fraction p/q):
@@ -53,6 +54,7 @@ from ..ops.cas_cuda import (
     cas_parity_grid_planes,
     cas_parity_planes_u2,
     cas_quantize,
+    cas_quantize_rows_u,
 )
 from ..ops.spectrum import assemble_big_spectrum
 from ..ops.weave import weave_grid_u8, weave_rows_u8
@@ -185,7 +187,7 @@ def _pipeline(img_u8: torch.Tensor, banks, plan: UpscalePlan, engine: Engine,
                 return E, D
             out = weave_rows_u8(E, D)
         else:
-            out = cas_quantize(dense.weave_rows(U, O, plan.integer_upscale), plan.sharpen)
+            out = cas_quantize_rows_u(U, O, plan.integer_upscale, plan.sharpen)
     else:
         x = cas_ops.normalize_u8(x_raw)
         out = cas_quantize(_precas(x, plan, engine, banks), plan.sharpen)

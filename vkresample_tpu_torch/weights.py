@@ -6,8 +6,13 @@ the port runs one float32 GEMM, so ``alpha = alpha_hi + alpha_lo`` and, at
 u=2, ``alpha_odd = alpha_odd_hi + alpha_odd_lo`` (exact in float32).
 ``Ymat_ns``, ``Y1n`` and ``beta`` carry over as they are, and so do the
 chain banks (r2c_chain_banks: ``alpha``, ``Ymat``, ``Y1``, ``beta``).  The
-TPU's int8 digit banks have no counterpart and are dropped.  The tests use
-this to feed both implementations the very same banks.
+fused y-GEMM + CAS bank ``ycasYT`` (u=2, built under
+``VKRESAMPLE_YCAS_BANKS``) is (h, h + RPAD) with zero columns past the h + r
+that carry weight: those pad columns serve the TPU's sublane alignment and
+are dropped, which gives the port's YT (fft/dense.py::ycas_bank).  The
+TPU's int8 digit banks and the bf16 hi|lo split of the y bank,
+``ycasYT2``, have no counterpart and are dropped.  The tests use this to
+feed both implementations the very same banks.
 
 The c2c banks are plain float arrays and carry over as they are: the c2c
 chain (``Xr``, ``Xi``, ``Yr``, ``Yi``, ``Yrpyi``) and the staged c2c grid
@@ -44,6 +49,10 @@ def banks_from_jax(banks: dict, device=None) -> dict:
         if key + "_hi" in banks:
             hi = np.asarray(banks[key + "_hi"]).astype(np.float32)
             out[key] = hi + np.asarray(banks[key + "_lo"]).astype(np.float32)
+    if "ycasYT" in banks:
+        # keep the h + r columns that carry weight: Ymat_ns is (h + r, h)
+        h_r = np.shape(banks["Ymat_ns"])[0]
+        out["ycasYT"] = np.asarray(banks["ycasYT"], np.float32)[:, :h_r]
     return {
         k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
         for k, v in out.items()
