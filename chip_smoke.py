@@ -15,7 +15,11 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
               (full size) and u = 2, 3, 4, 5 (odd shape), identical on every
               pixel to its plain version and to weave_rows + K3; K8 and K9
               at both fused-y frames with the frame's y bank and at odd
-              shapes (h = 1, 37; W = 200) with T2 present and absent
+              shapes (h = 1, 37; W = 200) with T2 present and absent; K6
+              and K7 (f32 only) at the A/B frame's (3, 2048, 4096), K3's
+              (3, 2160, 3840) and (2, 37, 201) at bh 1, 7, 64 (K6) and 1,
+              32, 128 (K7): K7 identical to its plain version and to K3
+              on every pixel, K6 within 1 LSB of K3
   4. routes   each route through the entry point a user calls
               (build_upscale(plan, planes_out=True) as the CLI does, or
               upscale()) against the fp64 oracle (<= 1 LSB); every
@@ -43,20 +47,27 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
               not), same counter rule:
                 fused y  1440x1080 -> 2880x2160, -p 2 and -p 0        K8
                 fused y  2048x1024 -> 4096x2048, -p 2                 K9
+              then the woven-CAS A/B runs, the JAX A/B scripts' frame
+              (scripts/cas_blocked_ab.py, cas_mono_ab.py): 2048x1024 ->
+              4096x2048 u=2 -p 2 plan, dense.r2c_rows without a codec,
+              dense.weave_rows (f32), one CAS, against the oracle (<= 1
+              LSB), same counter rule:
+                cas ab K3, K6 bh=64/128/256, K7 bh=64/128             K3/K6/K7
   5. CLI      python -m vkresample_tpu_torch on the samples (-validate),
               the 256x128 sample at u=2 and u=1.5 against its golden PNGs
               (<= 1 LSB), a frame whose width is not a multiple of 128,
               and -c2c at u=2 (1920x1080 sample) and u=3 (600x400 frame)
-  6. times    ms/frame of every route and fused-y run (-n 20, CUDA
+  6. times    ms/frame of every route, fused-y and A/B run (-n 20, CUDA
               events), each kernel against its plain version, the unfused
               forms K5, K8 and K9 replace (weave_rows + K3; torch.matmul y
-              GEMM, Q2.14 store in -p 2, + K2, woven for K9), and the device
-              grid weave
+              GEMM, Q2.14 store in -p 2, + K2, woven for K9), K3 beside K6
+              and K7 at their shape, and the device grid weave
 
 The line before the card's line lists each kernel with its launches over
-the routes, its worst difference, its time, its plain version's time and
-its bound: the larger of the bytes it must move (inputs read once, outputs
-written once) over 3.35 TB/s and its fp32 operations (~40 per output pixel
+the routes and runs, its worst difference, its time, its plain version's
+time and its bound: the larger of the bytes it must move (inputs read
+once, outputs written once; K6's halo rows included) over 3.35 TB/s and
+its fp32 operations (~40 per output pixel
 for the CAS, plus 2*C*h*(h+r)*W for the fused y GEMM) over 67 TFLOP/s (H100
 SXM).  No single PyTorch call computes CAS, with or without the GEMM, so
 library_ms is null.  It imports nothing of JAX.  The last stdout line is
@@ -106,6 +117,18 @@ FUSED = {
     "fused y K8 -p 2": ((1080, 1440), "HALF", "K8", "rows -p 2"),
     "fused y K8 -p 0": ((1080, 1440), "SINGLE", "K8", "rows -p 0"),
     "fused y K9 -p 2": ((1024, 2048), "HALF", "K9", "woven upscale() -p 2"),
+}
+
+# woven-CAS A/B run -> (its kernel, rows per block or band); the frame is
+# CAS_AB_FRAME (h, w) at u=2 with a -p 2 plan, as in the JAX A/B scripts
+CAS_AB_FRAME = (1024, 2048)
+CAS_AB = {
+    "cas ab K3": ("K3", None),
+    "cas ab K6 bh=64": ("K6", 64),
+    "cas ab K6 bh=128": ("K6", 128),
+    "cas ab K6 bh=256": ("K6", 256),
+    "cas ab K7 bh=64": ("K7", 64),
+    "cas ab K7 bh=128": ("K7", 128),
 }
 
 
@@ -216,6 +239,30 @@ def fused_y_fn(plan, dev, kid: str):
     return frame
 
 
+def cas_ab_fn(plan, dev, kid: str, bh):
+    """The woven-CAS A/B frame of a u=2 plan on `dev`, (h, w, C) uint8 image
+    -> dense.r2c_rows with no storage codec (U, O float32), the float32
+    dense.weave_rows image (C, 2h, 2w), then K3, K6 (bh rows per block) or
+    K7 (bh rows per band): the (C, 2h, 2w) uint8 image."""
+    from vkresample_tpu_torch import Engine
+    from vkresample_tpu_torch.fft import dense
+    from vkresample_tpu_torch.ops import cas_cuda
+    from vkresample_tpu_torch.pipeline.upscale import make_device_banks
+
+    banks = make_device_banks(plan, Engine.MXU, dev, planes_out=False)
+    cas = {
+        "K3": lambda v: cas_cuda.cas_quantize(v, plan.sharpen),
+        "K6": lambda v: cas_cuda.cas_quantize_blocked(v, plan.sharpen, bh),
+        "K7": lambda v: cas_cuda.cas_quantize_mono(v, plan.sharpen, bh),
+    }[kid]
+
+    def frame(img):
+        U, O = dense.r2c_rows(img.permute(2, 0, 1).contiguous(), banks)
+        return cas(dense.weave_rows(U, O, 2))
+
+    return frame
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -280,10 +327,26 @@ def main() -> int:
         return cas_cuda.cas_parity_planes_u2(U, to_i16_storage(O) if U.dtype == torch.int16
                                              else O, sharpen)
 
-    # kernel id -> name, wrapper, plain version, sources, argument cases
-    # (the first is the route shape, timed in phase 6), argument maker,
-    # bound from the arguments; exact: identical to the plain version on
-    # every pixel; unfused: the unfused form it replaces, timed in phase 6
+    def blocked_bound(v, bh):
+        """K6 reads v and its 2*C*nb*W halo rows, writes C*H*W uint8."""
+        H, W = v.shape[-2:]
+        halo = 2 * (v.numel() // (H * W)) * -(-H // bh) * W * 4
+        return bound(v.numel() * 5 + halo, v.numel() * CAS_OPS_PER_PIXEL)
+
+    k3_same = ("K3", lambda v, bh, s: cas_cuda.cas_quantize(v, s))
+
+    def k5_unfused(U, O, u, s):
+        """The unfused form K5 replaces: weave_rows + K3."""
+        return cas_cuda.cas_quantize(dense.weave_rows(U, O, u), s)
+
+    # kernel id -> name, wrapper (fn unless given: the function whose launch
+    # counter is read), kernel call, plain version, sources, argument cases
+    # (the first is the route shape, timed in phase 6), dtypes (int16 and
+    # f32 unless given), argument maker, bound from the arguments; exact:
+    # identical to the plain version on every pixel; vs: (label, form, max
+    # LSB) it is held against in phase 3 and timed beside in phase 6 unless
+    # it is the unfused form; unfused: the unfused form it replaces, timed
+    # in phase 6
     kernels = {
         "K1": dict(
             name="cas_parity4_planes_u2", fn=cas_cuda.cas_parity4_planes_u2,
@@ -331,7 +394,36 @@ def main() -> int:
             bound=lambda a: cas_bound(a[0].shape[:-2] + (a[2] * a[0].shape[-2], a[0].shape[-1]),
                                       1, a[0].element_size()),
             exact=True,
-            unfused=lambda U, O, u, s: cas_cuda.cas_quantize(dense.weave_rows(U, O, u), s),
+            unfused=k5_unfused,
+            vs=("weave_rows + K3", k5_unfused, 0),
+        ),
+        "K6": dict(
+            name="cas_quantize_blocked", wrapper=cas_cuda.cas_quantize_blocked,
+            fn=lambda v, bh, s: cas_cuda.cas_quantize_blocked(v, s, bh),
+            plain=lambda v, bh, s: cas_cuda.cas_quantize_blocked_reference(
+                v, *cas_cuda.blocked_halo_rows(v, bh), bh, s),
+            source="vkresample_tpu_torch/csrc/cas_blocked.cu",
+            replaces="vkresample_tpu/ops/cas_pallas.py:2427",
+            cases=[((C, 2048, 4096), 64), ((C, 2160, 3840), 64)]
+            + [((2, 37, 201), bh) for bh in (1, 7, 64)],
+            dtypes=(torch.float32,),
+            args=lambda case, dt: (planes(case[0], 1, dt)[0], case[1]),
+            bound=lambda a: blocked_bound(*a),
+            vs=k3_same + (1,),
+        ),
+        "K7": dict(
+            name="cas_quantize_mono", wrapper=cas_cuda.cas_quantize_mono,
+            fn=lambda v, bh, s: cas_cuda.cas_quantize_mono(v, s, bh),
+            plain=lambda v, bh, s: cas_cuda.cas_quantize_mono_reference(v, s),
+            source="vkresample_tpu_torch/csrc/cas_mono.cu",
+            replaces="vkresample_tpu/ops/cas_pallas.py:2550",
+            cases=[((C, 2048, 4096), 128), ((C, 2160, 3840), 128)]
+            + [((2, 37, 201), bh) for bh in (1, 32, 128)],
+            dtypes=(torch.float32,),
+            args=lambda case, dt: (planes(case[0], 1, dt)[0], case[1]),
+            bound=lambda a: cas_bound(a[0].shape, 1, 4),
+            exact=True,
+            vs=k3_same + (0,),
         ),
         "K8": dict(
             name="ycas_parity_u2", fn=ycas_cuda.ycas_parity_u2,
@@ -354,9 +446,11 @@ def main() -> int:
     }
 
     def call(k, which, args):
-        """Kernel (which="fn"), plain version ("plain") or unfused form
-        ("unfused") on the arguments; always a tuple of uint8 tensors."""
-        out = k[which](*args, 0.2)
+        """Kernel (which="fn"), plain version ("plain"), unfused form
+        ("unfused") or the form it is held against ("vs") on the arguments;
+        always a tuple of uint8 tensors."""
+        fn = k["vs"][1] if which == "vs" else k[which]
+        out = fn(*args, 0.2)
         return out if isinstance(out, tuple) else (out,)
 
     # 2. build
@@ -372,7 +466,7 @@ def main() -> int:
     for kid, k in kernels.items():
         k["max_abs_err"] = 0
         for case in k["cases"]:
-            for dt in (torch.float32, torch.int16):
+            for dt in k.get("dtypes", (torch.float32, torch.int16)):
                 args = k["args"](case, dt)
                 got = call(k, "fn", args)
                 torch.cuda.synchronize()
@@ -381,9 +475,12 @@ def main() -> int:
                       f"identical {same:.6f}")
                 if k.get("exact"):
                     require(d == 0, f"{kid} differs from its plain version at {case}")
-                    d3, _ = u8_diff(got, call(k, "unfused", args))
-                    print(f"[3 kernels] {kid} {case} {dt} vs weave_rows + K3: max|diff| {d3} LSB")
-                    require(d3 == 0, f"{kid} differs from weave_rows + K3 at {case}")
+                if "vs" in k:
+                    label, _, tol = k["vs"]
+                    dv, same_v = u8_diff(got, call(k, "vs", args))
+                    print(f"[3 kernels] {kid} {case} {dt} vs {label}: max|diff| {dv} LSB, "
+                          f"identical {same_v:.6f} (tol {tol})")
+                    require(dv <= tol, f"{kid} differs from {label} at {case}")
                 require(d <= TOL_LSB and same >= MIN_IDENTICAL,
                         f"{kid} disagrees with its plain version at {case}")
                 k["max_abs_err"] = max(k["max_abs_err"], d)
@@ -395,7 +492,7 @@ def main() -> int:
 
     def launches_of(run_name, runs):
         """Read and check every kernel's counter after a run."""
-        counts = {kid: k["fn"].launches for kid, k in kernels.items()}
+        counts = {kid: k.get("wrapper", k["fn"]).launches for kid, k in kernels.items()}
         for kid, n in counts.items():
             require((n > 0) == (kid in runs),
                     f"{run_name}: {kid} launched {n} times, expected {'some' if kid in runs else 'none'}")
@@ -404,7 +501,7 @@ def main() -> int:
 
     def zero_counters():
         for k in kernels.values():
-            k["fn"].launches = 0
+            k.get("wrapper", k["fn"]).launches = 0
 
     def image(h, w):
         if (h, w) not in imgs:
@@ -462,8 +559,27 @@ def main() -> int:
               f"(bar {bar}); launches {counts}")
         require(d <= TOL_LSB, f"{run} is {d} LSB from the oracle")
         require(dr <= TOL_LSB and same >= bar, f"{run} disagrees with the route {against}")
+
+    # the woven-CAS A/B runs: r2c_rows, weave_rows, then K3, K6 or K7
+    ab_fns = {}
+    h, w = CAS_AB_FRAME
+    ab_plan = UpscalePlan(h=h, w=w, upscale=2.0, precision=Precision.HALF)
+    ab_x = torch.from_numpy(image(h, w)).to(dev)
+    for run, (kid, bh) in CAS_AB.items():
+        frame = ab_fns[run] = cas_ab_fn(ab_plan, dev, kid, bh)
+        zero_counters()
+        out = frame(ab_x)
+        torch.cuda.synchronize()
+        counts = launches_of(run, {kid})
+        got = woven_hwc(out, "planar", ab_plan)
+        require(got.shape == (ab_plan.H, ab_plan.W, C) and got.dtype == np.uint8,
+                f"{run}: bad output {got.shape} {got.dtype}")
+        d = int(np.abs(got.astype(np.int16) - oracles[(h, w, 2.0, True)].astype(np.int16)).max())
+        print(f"[4 routes] {run}: {w}x{h} -> {ab_plan.W}x{ab_plan.H}, max|diff| vs fp64 oracle "
+              f"{d} LSB; launches {counts}")
+        require(d <= TOL_LSB, f"{run} is {d} LSB from the oracle")
     for kid, k in kernels.items():
-        print(f"[4 routes] {kid} {k['name']} launches over the routes: {k['launches']}")
+        print(f"[4 routes] {kid} {k['name']} launches over the routes and runs: {k['launches']}")
 
     # 5. the CLI on the samples, the golden PNGs and a non-aligned frame
     out_dir = os.path.join(ROOT, "vkresample_tpu_torch", "build", "smoke")
@@ -515,9 +631,13 @@ def main() -> int:
         _, ms = time_amortized(fn, (x,), 20, dev)
         print(f"[6 times] {run} {w}x{h} x2 (r2c_x_only + {FUSED[run][2]}): {ms:.4f} ms/frame "
               f"(-n 20, CUDA events) on {card}")
+    for run, fn in ab_fns.items():
+        _, ms = time_amortized(fn, (ab_x,), 20, dev)
+        print(f"[6 times] {run} {ab_plan.w}x{ab_plan.h} x2 (r2c_rows + weave_rows + "
+              f"{CAS_AB[run][0]}): {ms:.4f} ms/frame (-n 20, CUDA events) on {card}")
     for kid, k in kernels.items():
         case = k["cases"][0]
-        for dt in (torch.int16, torch.float32):
+        for dt in k.get("dtypes", (torch.int16, torch.float32)):
             args = k["args"](case, dt)
             ms = cuda_ms(lambda: call(k, "fn", args), 50)
             plain_ms = cuda_ms(lambda: call(k, "plain", args), 10)
@@ -525,6 +645,8 @@ def main() -> int:
             extra = ""
             if "unfused" in k:
                 extra = f", unfused form {cuda_ms(lambda: call(k, 'unfused', args), 50):.4f} ms"
+            elif "vs" in k:
+                extra = f", {k['vs'][0]} {cuda_ms(lambda: call(k, 'vs', args), 50):.4f} ms"
             print(f"[6 times] {kid} {k['name']} {case} {dt}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms{extra}, bound {bound_ms:.4f} ms ({bound_by}) on {card}")
             for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),

@@ -4,9 +4,10 @@
     python3 scripts/torch_route_profile.py all             # every route and run
     python3 scripts/torch_route_profile.py "quad -p 2" ...  # named routes or runs
 
-The routes and the fused-y runs are chip_smoke.py's ROUTES and FUSED (full
-frame sizes, 3 channels, a seeded random frame already on the device).  For
-each it prints, with the card's name and power limit:
+The routes, the fused-y runs and the woven-CAS A/B runs ("cas ab K3", "cas
+ab K6 bh=64" ..., "cas ab K7 bh=128") are chip_smoke.py's ROUTES, FUSED and
+CAS_AB (full frame sizes, 3 channels, a seeded random frame already on the
+device).  For each it prints, with the card's name and power limit:
 
   ms/frame      -n 20 through the entry point, CUDA events (as chip_smoke)
   graph         the same frame captured once in a CUDA graph and replayed
@@ -63,11 +64,15 @@ def _graph_ms(fn, x, n: int = 20) -> float:
 
 
 def route_fn(name, dev):
-    """(plan, frame function) of a chip_smoke route or fused-y run."""
-    from chip_smoke import FUSED, ROUTES, fused_y_fn
+    """(plan, frame function) of a chip_smoke route, fused-y or A/B run."""
+    from chip_smoke import CAS_AB, CAS_AB_FRAME, FUSED, ROUTES, cas_ab_fn, fused_y_fn
 
     from vkresample_tpu_torch import Engine, Precision, UpscalePlan, build_upscale
 
+    if name in CAS_AB:
+        (h, w), (kid, bh) = CAS_AB_FRAME, CAS_AB[name]
+        plan = UpscalePlan(h=h, w=w, upscale=2.0, precision=Precision.HALF)
+        return plan, cas_ab_fn(plan, dev, kid, bh)
     if name in FUSED:
         (h, w), prec, kid, _ = FUSED[name]
         plan = UpscalePlan(h=h, w=w, upscale=2.0, precision=Precision[prec])
@@ -122,10 +127,10 @@ def main(argv) -> int:
         print("no CUDA device: this profile needs one GPU")
         return 1
     sys.path.insert(0, ROOT)
-    from chip_smoke import FUSED, ROUTES
+    from chip_smoke import CAS_AB, FUSED, ROUTES
 
     names = ([n for n in ROUTES if "c2c" in n] if not argv
-             else list(ROUTES) + list(FUSED) if argv == ["all"] else argv)
+             else list(ROUTES) + list(FUSED) + list(CAS_AB) if argv == ["all"] else argv)
     card = _card()
     print(f"{card}  torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)

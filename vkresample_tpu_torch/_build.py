@@ -122,6 +122,8 @@ def load_kernels() -> ctypes.CDLL:
                 ("vkr_cas_woven", [ptr] * 2 + [i32] * 4),      # v, out; C, H, W, is_i16
                 ("vkr_cas_grid", [ptrs] * 2 + [i32] * 5),      # in[u*u], out[u*u]; u, C, h, W, is_i16
                 ("vkr_cas_rows_u", [ptr] * 3 + [i32] * 5),     # U, O, out; C, h, W, u, is_i16
+                ("vkr_cas_blocked", [ptr] * 4 + [i32] * 4),    # v, top, bot, out; C, H, W, bh
+                ("vkr_cas_mono", [ptr] * 2 + [i32] * 4),       # v, out; C, H, W, bh
                 ("vkr_ycas_parity_u2", [ptr] * 5 + [i32] * 5),  # U, T2, YT, E, D; C, h, W, r, is_i16
                 ("vkr_ycas_u2", [ptr] * 4 + [i32] * 5),        # U, T2, YT, out; C, h, W, r, is_i16
             ):

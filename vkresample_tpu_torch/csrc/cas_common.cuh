@@ -1,15 +1,23 @@
 // The per-pixel FidelityFX-CAS evaluation shared by the port's CAS kernels
-// (cas_quad.cu, cas_parity.cu, cas_woven.cu).
+// (cas_quad.cu, cas_parity.cu, cas_woven.cu, cas_grid.cu, cas_rows.cu,
+// cas_blocked.cu, cas_mono.cu, ycas.cu).
 //
 // With L = min(|V|, 1) (int16 Q2.14 input scaled by 1/16384 first), every
 // output pixel is the 3x3 clamp-to-edge CAS of L (VkResample.cpp:887-923):
-// two-level min/max over cross and corners, scale = -s * num * rsqrt(
-// max(num*den, 1e-30)), out = (c + scale*(n+s+w+e)) / (1 + 4*scale), then
-// (int)clamp(out*255, 0, 255) -- the JAX kernels' _cas_blend
-// (vkresample_tpu/ops/cas_pallas.py:637-656).  Written with explicit
-// round-to-nearest intrinsics (no FMA contraction) in the plain PyTorch
-// version's operation order (ops/cas_cuda.py::_blend_u8), so the kernels
-// round like it op for op.
+// two-level min/max over cross and corners, scale = -s * sqrt(num/den) for
+// the smaller of minlen/(1-minlen) and (1-maxlen)/maxlen, out = (c +
+// scale*(n+s+w+e)) / (1 + 4*scale), then (int)clamp(out*255, 0, 255).
+// Two evaluations of the scale exist in the JAX kernels, and each has one
+// here:
+//   cas_pixel       num * rsqrt(max(num*den, 1e-30)), _cas_blend
+//                   (vkresample_tpu/ops/cas_pallas.py:637-656); every
+//                   kernel but K6
+//   cas_pixel_sqrt  sqrt(max(num/den, 0)) with an IEEE divide,
+//                   _cas_blk_kernel (cas_pallas.py:2408-2424); K6
+// The two differ by 1 LSB on rare boundary pixels.  Both are written with
+// explicit round-to-nearest intrinsics (no FMA contraction) in the plain
+// PyTorch version's operation order (ops/cas_cuda.py::_blend_u8), so the
+// kernels round like it op for op.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,9 +30,17 @@ __device__ __forceinline__ float clip_len(int16_t v) {
   return fminf(fabsf(__fmul_rn((float)v, 1.0f / 16384.0f)), 1.0f);
 }
 
-__device__ __forceinline__ uint8_t cas_pixel(
+// The blend's selected quotient: sqrt(num/den) is the smaller of
+// minlen/(1-minlen) and (1-maxlen)/maxlen, picked by cross-multiplication.
+// The selected denominator is never 0 (minlen = 1 forces the other branch,
+// maxlen = 0 likewise, cas_pallas.py:186-190).
+struct CasRatio {
+  float num, den;
+};
+
+__device__ __forceinline__ CasRatio cas_ratio(
     float nw, float n, float ne, float w, float c, float e,
-    float sw, float s, float se, float sharpen) {
+    float sw, float s, float se) {
   const float xmin = fminf(w, e), xmax = fmaxf(w, e);
   const float min_cross = fminf(fminf(n, s), fminf(c, xmin));
   const float max_cross = fmaxf(fmaxf(n, s), fmaxf(c, xmax));
@@ -34,15 +50,15 @@ __device__ __forceinline__ uint8_t cas_pixel(
   const float max_all = fmaxf(max_cross, cmax);
   const float minlen = __fmul_rn(0.5f, __fadd_rn(min_cross, min_all));
   const float maxlen = __fmul_rn(0.5f, __fadd_rn(max_cross, max_all));
-  // _cas_blend: sqrt(num/den) as num * rsqrt(num*den), floored so num == 0
-  // gives 0 and not 0 * inf
   const float a = minlen, b = __fsub_rn(1.0f, minlen);
   const float cq = __fsub_rn(1.0f, maxlen), d = maxlen;
   const bool pred = __fmul_rn(a, d) < __fmul_rn(cq, b);
-  const float num = pred ? a : cq;
-  const float den = pred ? b : d;
-  const float sc = __fmul_rn(__fmul_rn(-sharpen, num),
-                             rsqrtf(fmaxf(__fmul_rn(num, den), 1e-30f)));
+  return {pred ? a : cq, pred ? b : d};
+}
+
+// out = (c + sc*(n+s+w+e)) / (1 + 4*sc), x255, clamp, truncate to uint8.
+__device__ __forceinline__ uint8_t cas_out(float n, float w, float c, float e,
+                                           float s, float sc) {
   const float nsum = __fadd_rn(__fadd_rn(n, s), __fadd_rn(w, e));
   const float out = __fdiv_rn(__fadd_rn(c, __fmul_rn(sc, nsum)),
                               __fadd_rn(1.0f, __fmul_rn(4.0f, sc)));
@@ -50,14 +66,40 @@ __device__ __forceinline__ uint8_t cas_pixel(
   return (uint8_t)(int)q;
 }
 
-// 3x3 CAS of the woven window centred on tile[r][q] (row pitch kSW).
-template <int kSW>
+__device__ __forceinline__ uint8_t cas_pixel(
+    float nw, float n, float ne, float w, float c, float e,
+    float sw, float s, float se, float sharpen) {
+  const CasRatio r = cas_ratio(nw, n, ne, w, c, e, sw, s, se);
+  // _cas_blend: sqrt(num/den) as num * rsqrt(num*den), floored so num == 0
+  // gives 0 and not 0 * inf
+  const float sc = __fmul_rn(__fmul_rn(-sharpen, r.num),
+                             rsqrtf(fmaxf(__fmul_rn(r.num, r.den), 1e-30f)));
+  return cas_out(n, w, c, e, s, sc);
+}
+
+__device__ __forceinline__ uint8_t cas_pixel_sqrt(
+    float nw, float n, float ne, float w, float c, float e,
+    float sw, float s, float se, float sharpen) {
+  const CasRatio r = cas_ratio(nw, n, ne, w, c, e, sw, s, se);
+  // _cas_blk_kernel: -s * sqrt(max(num/den, 0)), an IEEE divide and sqrt
+  const float sc = __fmul_rn(-sharpen, __fsqrt_rn(fmaxf(__fdiv_rn(r.num, r.den), 0.0f)));
+  return cas_out(n, w, c, e, s, sc);
+}
+
+// 3x3 CAS of the woven window centred on tile[r][q] (row pitch kSW);
+// kSqrt picks cas_pixel_sqrt (K6's blend) over cas_pixel.
+template <int kSW, bool kSqrt = false>
 __device__ __forceinline__ uint8_t cas_at(float (*tile)[kSW], int r, int q,
                                           float sharpen) {
-  return cas_pixel(tile[r - 1][q - 1], tile[r - 1][q], tile[r - 1][q + 1],
-                   tile[r][q - 1], tile[r][q], tile[r][q + 1],
-                   tile[r + 1][q - 1], tile[r + 1][q], tile[r + 1][q + 1],
-                   sharpen);
+  if constexpr (kSqrt) {
+    return cas_pixel_sqrt(tile[r - 1][q - 1], tile[r - 1][q], tile[r - 1][q + 1],
+                          tile[r][q - 1], tile[r][q], tile[r][q + 1],
+                          tile[r + 1][q - 1], tile[r + 1][q], tile[r + 1][q + 1], sharpen);
+  } else {
+    return cas_pixel(tile[r - 1][q - 1], tile[r - 1][q], tile[r - 1][q + 1],
+                     tile[r][q - 1], tile[r][q], tile[r][q + 1],
+                     tile[r + 1][q - 1], tile[r + 1][q], tile[r + 1][q + 1], sharpen);
+  }
 }
 
 }  // namespace

@@ -8,16 +8,25 @@ Counterparts of vkresample_tpu/ops/cas_pallas.py:
   K4 cas_parity_grid_planes grid-parity CAS (u x u planes)     csrc/cas_grid.cu
   K5 cas_quantize_rows_u    fused row weave + woven CAS        csrc/cas_rows.cu
                             (integer u >= 3 rows route)
+  K6 cas_quantize_blocked   woven CAS over row blocks fed      csrc/cas_blocked.cu
+                            outside-built halo rows (f32)
+  K7 cas_quantize_mono      woven CAS, one persistent launch   csrc/cas_mono.cu
+                            with a cp.async band pipeline (f32)
 
-All five compute the same thing: the 3x3 clamp-to-edge CAS + quantize of
+All seven compute the same thing: the 3x3 clamp-to-edge CAS + quantize of
 a woven pre-CAS image, int16 Q2.14 or float32, to uint8.  K1, K2 and K4
 take that image as parity planes and return uint8 planes of the same
 layout, K5 as the row-split pair (U, O) and returns the woven image, so
-the woven pre-CAS image never exists on the device.  One plain version,
+the woven pre-CAS image never exists on the device.  K6 and K7 take the
+woven image in float32 only, as their JAX kernels do; they are on no
+route (in the JAX package only A/B scripts call them).  One plain version,
 ``cas_quantize_reference``, holds the arithmetic; the other kernels' plain
-versions weave their inputs, call it and split the result.  See each
-kernel source's header for its design.  The fused y-GEMM + CAS kernels K8
-and K9 are in ops/ycas_cuda.py.
+versions weave their inputs, call it and split the result.  K6 alone
+evaluates the blend as sqrt(num/den) with a divide (its JAX kernel's form,
+1 LSB from the others' rsqrt form on rare pixels), and its plain version
+``cas_quantize_blocked_reference`` takes the kernel's own halo-row inputs.
+See each kernel source's header for its design.  The fused y-GEMM + CAS
+kernels K8 and K9 are in ops/ycas_cuda.py.
 
 Each wrapper runs its kernel on a CUDA tensor (on the current stream; a
 launch error raises) and its plain version on a CPU tensor, and counts its
@@ -71,17 +80,43 @@ def _launch(entry: str, device, *args) -> None:
         raise RuntimeError(f"{entry} launch failed: cudaError_t {rc}")
 
 
-def _blend_u8(c, nsum, minlen, maxlen, sharpen: float) -> torch.Tensor:
+def _blend_u8(c, nsum, minlen, maxlen, sharpen: float, divide: bool = False) -> torch.Tensor:
     """_cas_blend (cas_pallas.py:637-656): the rsqrt form with the 1e-30
-    floor, then x255, clamp, truncate."""
+    floor, or with `divide` _cas_blk_kernel's sqrt(num/den) form
+    (cas_pallas.py:2416-2420); then x255, clamp, truncate."""
     a, b = minlen, 1.0 - minlen
     cq, d = 1.0 - maxlen, maxlen
     pred = a * d < cq * b
     num = torch.where(pred, a, cq)
     den = torch.where(pred, b, d)
-    sc = (-sharpen * num) * torch.rsqrt(torch.clamp(num * den, min=1e-30))
+    if divide:
+        sc = -sharpen * torch.sqrt(torch.clamp(num / den, min=0.0))
+    else:
+        sc = (-sharpen * num) * torch.rsqrt(torch.clamp(num * den, min=1e-30))
     out = (c + sc * nsum) / (1.0 + 4.0 * sc)
     return torch.clamp(out * 255.0, 0.0, 255.0).to(torch.int32).to(torch.uint8)
+
+
+def _stencil_u8(c, n, s, sharpen: float, divide: bool = False) -> torch.Tensor:
+    """CAS + quantize of the L rows c (N, H, W) whose north and south
+    neighbour rows are n and s (same shape, already clamped or taken from
+    halo rows by the caller); columns clamp to the edge."""
+    pc, pn, ps = (F.pad(t, (1, 1), mode="replicate") for t in (c, n, s))
+    w, e = pc[..., :-2], pc[..., 2:]
+    nw, ne = pn[..., :-2], pn[..., 2:]
+    sw, se = ps[..., :-2], ps[..., 2:]
+    mn, mx = torch.minimum, torch.maximum
+    min_cross = mn(mn(n, s), mn(c, mn(w, e)))
+    max_cross = mx(mx(n, s), mx(c, mx(w, e)))
+    min_all = mn(min_cross, mn(mn(nw, ne), mn(sw, se)))
+    max_all = mx(max_cross, mx(mx(nw, ne), mx(sw, se)))
+    minlen = 0.5 * (min_cross + min_all)
+    maxlen = 0.5 * (max_cross + max_all)
+    return _blend_u8(c, (n + s) + (w + e), minlen, maxlen, sharpen, divide)
+
+
+def _clip_len(f: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(f.abs(), max=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -92,26 +127,15 @@ def _blend_u8(c, nsum, minlen, maxlen, sharpen: float) -> torch.Tensor:
 def cas_quantize_reference(v: torch.Tensor, sharpen: float) -> torch.Tensor:
     """Plain PyTorch version of the woven CAS kernel, on any device:
     (..., H, W) int16 Q2.14 or float32 pre-CAS image (u^2 pre-scale folded
-    in) -> (..., H, W) uint8.  L = min(|v|, 1), edge-padded 3x3 CAS with
+    in) -> (..., H, W) uint8.  L = min(|v|, 1), edge-clamped 3x3 CAS with
     the kernel's rsqrt blend (cas_pallas.py:134-202), quantize."""
     _check("woven CAS", (v,))
     H, W = v.shape[-2:]
     f = from_i16_storage(v) if v.dtype == torch.int16 else v
-    L = torch.clamp(f.reshape(-1, H, W).abs(), max=1.0)
-    p = F.pad(L[:, None], (1, 1, 1, 1), mode="replicate")[:, 0]
-    c = p[:, 1:-1, 1:-1]
-    n, s = p[:, :-2, 1:-1], p[:, 2:, 1:-1]
-    w, e = p[:, 1:-1, :-2], p[:, 1:-1, 2:]
-    nw, ne = p[:, :-2, :-2], p[:, :-2, 2:]
-    sw, se = p[:, 2:, :-2], p[:, 2:, 2:]
-    mn, mx = torch.minimum, torch.maximum
-    min_cross = mn(mn(n, s), mn(c, mn(w, e)))
-    max_cross = mx(mx(n, s), mx(c, mx(w, e)))
-    min_all = mn(min_cross, mn(mn(nw, ne), mn(sw, se)))
-    max_all = mx(max_cross, mx(mx(nw, ne), mx(sw, se)))
-    minlen = 0.5 * (min_cross + min_all)
-    maxlen = 0.5 * (max_cross + max_all)
-    return _blend_u8(c, (n + s) + (w + e), minlen, maxlen, sharpen).reshape(v.shape)
+    L = _clip_len(f.reshape(-1, H, W))
+    n = torch.cat([L[:, :1], L[:, :-1]], dim=1)
+    s = torch.cat([L[:, 1:], L[:, -1:]], dim=1)
+    return _stencil_u8(L, n, s, sharpen).reshape(v.shape)
 
 
 def cas_quantize(v: torch.Tensor, sharpen: float) -> torch.Tensor:
@@ -308,3 +332,122 @@ def cas_quantize_rows_u(U, O, u: int, sharpen: float) -> torch.Tensor:
 
 
 cas_quantize_rows_u.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: woven CAS over row blocks with outside-built halo rows (f32)
+# ---------------------------------------------------------------------------
+
+
+def _check_f32(what: str, v: torch.Tensor) -> None:
+    if v.dtype != torch.float32:
+        raise TypeError(f"{what} takes a float32 image, got {v.dtype}")
+    _check(what, (v,))
+
+
+def _block_rows(bh) -> int:
+    if int(bh) != bh or bh < 1:
+        raise ValueError(f"block_rows must be an integer >= 1, got {bh}")
+    return int(bh)
+
+
+def blocked_halo_rows(v: torch.Tensor, bh: int):
+    """The one-row halos of K6's row blocks, the JAX wrapper's clamped row
+    gather (cas_pallas.py:2446-2448): for v (..., H, W) and nb = ceil(H/bh)
+    blocks, top[..., i, :] = v[..., max(i*bh - 1, 0), :] and bot[..., i, :]
+    = v[..., min((i+1)*bh, H-1), :], each (..., nb, W) and contiguous.
+    Only the first top row and the last bot row clamp, so each is a
+    concatenation of strided row slices: no index vectors to build."""
+    bh = _block_rows(bh)
+    H = v.shape[-2]
+    top = torch.cat([v[..., :1, :], v[..., bh - 1:H - 1:bh, :]], dim=-2)
+    bot = torch.cat([v[..., bh::bh, :], v[..., -1:, :]], dim=-2)
+    return top, bot
+
+
+def _check_blocked(v, top, bot, bh) -> int:
+    _check_f32("blocked CAS", v)
+    bh = _block_rows(bh)
+    H, W = v.shape[-2:]
+    halo = v.shape[:-2] + (-(-H // bh), W)
+    _check("blocked CAS", (v, top, bot), (v.shape, halo, halo))
+    return bh
+
+
+def cas_quantize_blocked_reference(v, top, bot, bh: int, sharpen: float) -> torch.Tensor:
+    """Plain PyTorch version of the blocked CAS kernel, on any device, with
+    the kernel's arguments: v (..., H, W) float32 cut into blocks of bh
+    rows, and the blocks' halo rows top, bot (..., ceil(H/bh), W).  Inside
+    a block the north and south neighbours are v's rows; the north of a
+    block's first row is its top row and the south of its last valid row
+    its bot row, so a wrong halo shows.  The blend is the sqrt(num/den)
+    form of _cas_blk_kernel (cas_pallas.py:2378-2424)."""
+    bh = _check_blocked(v, top, bot, bh)
+    H, W = v.shape[-2:]
+    L = _clip_len(v.reshape(-1, H, W))
+    Lt, Lb = (_clip_len(t.reshape(L.shape[0], -1, W)) for t in (top, bot))
+    y = torch.arange(H, device=v.device)
+    blk = y // bh
+    first = (y % bh == 0)[:, None]
+    last = ((y % bh == bh - 1) | (y == H - 1))[:, None]
+    n = torch.where(first, Lt[:, blk], L[:, (y - 1).clamp(min=0)])
+    s = torch.where(last, Lb[:, blk], L[:, (y + 1).clamp(max=H - 1)])
+    return _stencil_u8(L, n, s, sharpen, divide=True).reshape(v.shape)
+
+
+def cas_quantize_blocked(v: torch.Tensor, sharpen: float, block_rows: int = 64) -> torch.Tensor:
+    """Blocked woven CAS + quantize: (..., H, W) float32 -> uint8 of the
+    same shape, in blocks of block_rows rows whose halo rows are gathered
+    first (blocked_halo_rows, two row-slice copies on the card).  CUDA
+    tensors go through csrc/cas_blocked.cu, CPU tensors take the plain
+    version.  The output does not depend on block_rows."""
+    _check_f32("blocked CAS", v)
+    bh = _block_rows(block_rows)
+    top, bot = blocked_halo_rows(v, bh)
+    if v.device.type == "cpu":
+        return cas_quantize_blocked_reference(v, top, bot, bh, sharpen)
+    H, W = v.shape[-2:]
+    out = torch.empty(v.shape, dtype=torch.uint8, device=v.device)
+    if v.numel() == 0:
+        return out
+    _launch("vkr_cas_blocked", v.device, v.data_ptr(), top.data_ptr(), bot.data_ptr(),
+            out.data_ptr(), v.numel() // (H * W), H, W, bh, float(sharpen))
+    cas_quantize_blocked.launches += 1
+    return out
+
+
+cas_quantize_blocked.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: woven CAS in one persistent launch (f32)
+# ---------------------------------------------------------------------------
+
+
+def cas_quantize_mono_reference(v: torch.Tensor, sharpen: float) -> torch.Tensor:
+    """Plain PyTorch version of the persistent CAS kernel, on any device:
+    K3's arithmetic (_cas_band) on a float32 (..., H, W) image."""
+    _check_f32("mono CAS", v)
+    return cas_quantize_reference(v, sharpen)
+
+
+def cas_quantize_mono(v: torch.Tensor, sharpen: float, block_rows: int = 128) -> torch.Tensor:
+    """Woven CAS + quantize in one persistent launch: (..., H, W) float32 ->
+    uint8 of the same shape, in bands of block_rows rows (at most 192 per
+    band on the card).  CUDA tensors go through csrc/cas_mono.cu, CPU
+    tensors take the plain version.  The output equals cas_quantize's."""
+    _check_f32("mono CAS", v)
+    bh = _block_rows(block_rows)
+    if v.device.type == "cpu":
+        return cas_quantize_mono_reference(v, sharpen)
+    H, W = v.shape[-2:]
+    out = torch.empty(v.shape, dtype=torch.uint8, device=v.device)
+    if v.numel() == 0:
+        return out
+    _launch("vkr_cas_mono", v.device, v.data_ptr(), out.data_ptr(),
+            v.numel() // (H * W), H, W, bh, float(sharpen))
+    cas_quantize_mono.launches += 1
+    return out
+
+
+cas_quantize_mono.launches = 0
