@@ -19,7 +19,11 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
               and K7 (f32 only) at the A/B frame's (3, 2048, 4096), K3's
               (3, 2160, 3840) and (2, 37, 201) at bh 1, 7, 64 (K6) and 1,
               32, 128 (K7): K7 identical to its plain version and to K3
-              on every pixel, K6 within 1 LSB of K3
+              on every pixel, K6 within 1 LSB of K3; the copy-quantize
+              probes K10a (K3's tile) and K10b (K7's band pipeline; f32
+              only) at (3, 2048, 4096), (3, 2160, 3840) and (2, 37, 201),
+              K10b at bh 128, 64, 32 and 1, identical on every pixel to
+              their plain version
   4. routes   each route through the entry point a user calls
               (build_upscale(plan, planes_out=True) as the CLI does, or
               upscale()) against the fp64 oracle (<= 1 LSB); every
@@ -53,24 +57,38 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
               dense.weave_rows (f32), one CAS, against the oracle (<= 1
               LSB), same counter rule:
                 cas ab K3, K6 bh=64/128/256, K7 bh=64/128             K3/K6/K7
+              then the CAS-split runs, the JAX script's frame
+              (scripts/cas_split.py): the A/B frame's woven image, then a
+              copy-quantize probe, identical on every pixel to the plain
+              quantize_u8 of the same woven image on the card, same
+              counter rule:
+                cas split K10a, K10b bh=64/128                        K10a/K10b
+              and the TF32 check: under the caller's
+              torch.set_float32_matmul_precision("high") the cached quad -p 0
+              function stays <= 1 LSB from the oracle (its GEMMs run in
+              fp32) and the caller's setting is left as it was; the same
+              frame run without the pin is printed beside it
   5. CLI      python -m vkresample_tpu_torch on the samples (-validate),
               the 256x128 sample at u=2 and u=1.5 against its golden PNGs
               (<= 1 LSB), a frame whose width is not a multiple of 128,
               and -c2c at u=2 (1920x1080 sample) and u=3 (600x400 frame)
-  6. times    ms/frame of every route, fused-y and A/B run (-n 20, CUDA
-              events), each kernel against its plain version, the unfused
-              forms K5, K8 and K9 replace (weave_rows + K3; torch.matmul y
-              GEMM, Q2.14 store in -p 2, + K2, woven for K9), K3 beside K6
-              and K7 at their shape, and the device grid weave
+  6. times    ms/frame of every route, fused-y, A/B and CAS-split run
+              (-n 20, CUDA events), each kernel against its plain version,
+              the unfused forms K5, K8 and K9 replace (weave_rows + K3;
+              torch.matmul y GEMM, Q2.14 store in -p 2, + K2, woven for K9),
+              K3 beside K6 and K7 at their shape, K10a beside K3 and K10b
+              beside K7 (bh 128 and 64) at (3, 2048, 4096), and the device
+              grid weave
 
 The line before the card's line lists each kernel with its launches over
 the routes and runs, its worst difference, its time, its plain version's
 time and its bound: the larger of the bytes it must move (inputs read
 once, outputs written once; K6's halo rows included) over 3.35 TB/s and
 its fp32 operations (~40 per output pixel
-for the CAS, plus 2*C*h*(h+r)*W for the fused y GEMM) over 67 TFLOP/s (H100
-SXM).  No single PyTorch call computes CAS, with or without the GEMM, so
-library_ms is null.  It imports nothing of JAX.  The last stdout line is
+for the CAS, 3 for the quantize, plus 2*C*h*(h+r)*W for the fused y GEMM)
+over 67 TFLOP/s (H100 SXM).  No single PyTorch call computes CAS, with or
+without the GEMM, or the truncating uint8 quantize, so library_ms is null.
+It imports nothing of JAX.  The last stdout line is
 the result JSON.
 """
 from __future__ import annotations
@@ -90,6 +108,7 @@ C = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 CAS_OPS_PER_PIXEL = 40  # cas_common.cuh: clip, min/max tree, blend, quantize
+QUANT_OPS_PER_PIXEL = 3  # cas_common.cuh::quantize_u8: multiply, two clamps
 
 # route name -> ((h, w), upscale, precision, engine, r2c, entry, kernels it runs)
 ROUTES = {
@@ -129,6 +148,14 @@ CAS_AB = {
     "cas ab K6 bh=256": ("K6", 256),
     "cas ab K7 bh=64": ("K7", 64),
     "cas ab K7 bh=128": ("K7", 128),
+}
+
+# CAS-split run -> (its copy-quantize probe, rows per band); the frame is the
+# A/B frame, as in the JAX script scripts/cas_split.py
+CAS_SPLIT = {
+    "cas split K10a": ("K10a", None),
+    "cas split K10b bh=64": ("K10b", 64),
+    "cas split K10b bh=128": ("K10b", 128),
 }
 
 
@@ -225,7 +252,7 @@ def fused_y_fn(plan, dev, kid: str):
     from vkresample_tpu_torch.fft import dense
     from vkresample_tpu_torch.ops import ycas_cuda
     from vkresample_tpu_torch.ops.cas import to_i16_storage
-    from vkresample_tpu_torch.pipeline.upscale import make_device_banks
+    from vkresample_tpu_torch.pipeline.upscale import fp32_matmul, make_device_banks
 
     banks = make_device_banks(plan, Engine.MXU, dev, planes_out=False)
     YT = torch.from_numpy(dense.ycas_bank(plan)).to(dev)
@@ -233,34 +260,58 @@ def fused_y_fn(plan, dev, kid: str):
     half = plan.precision is Precision.HALF
 
     def frame(img):
-        U, T2 = dense.r2c_x_only(img.permute(2, 0, 1).contiguous(), banks)
-        return kernel(to_i16_storage(U) if half else U, T2, YT, plan.sharpen)
+        with fp32_matmul():
+            U, T2 = dense.r2c_x_only(img.permute(2, 0, 1).contiguous(), banks)
+            return kernel(to_i16_storage(U) if half else U, T2, YT, plan.sharpen)
 
     return frame
 
 
-def cas_ab_fn(plan, dev, kid: str, bh):
-    """The woven-CAS A/B frame of a u=2 plan on `dev`, (h, w, C) uint8 image
-    -> dense.r2c_rows with no storage codec (U, O float32), the float32
-    dense.weave_rows image (C, 2h, 2w), then K3, K6 (bh rows per block) or
-    K7 (bh rows per band): the (C, 2h, 2w) uint8 image."""
+def woven_fn(plan, dev):
+    """The woven pre-CAS image of a u=2 plan on `dev` as the JAX A/B and
+    CAS-split scripts make it: (h, w, C) uint8 image -> dense.r2c_rows with
+    no storage codec (U, O float32, GEMMs in full fp32) -> the float32
+    dense.weave_rows image (C, 2h, 2w)."""
     from vkresample_tpu_torch import Engine
     from vkresample_tpu_torch.fft import dense
-    from vkresample_tpu_torch.ops import cas_cuda
-    from vkresample_tpu_torch.pipeline.upscale import make_device_banks
+    from vkresample_tpu_torch.pipeline.upscale import fp32_matmul, make_device_banks
 
     banks = make_device_banks(plan, Engine.MXU, dev, planes_out=False)
+
+    def woven(img):
+        with fp32_matmul():
+            U, O = dense.r2c_rows(img.permute(2, 0, 1).contiguous(), banks)
+        return dense.weave_rows(U, O, 2)
+
+    return woven
+
+
+def cas_ab_fn(plan, dev, kid: str, bh):
+    """The woven-CAS A/B frame of a u=2 plan on `dev`: woven_fn's image,
+    then K3, K6 (bh rows per block) or K7 (bh rows per band): the (C, 2h,
+    2w) uint8 image."""
+    from vkresample_tpu_torch.ops import cas_cuda
+
+    woven = woven_fn(plan, dev)
     cas = {
         "K3": lambda v: cas_cuda.cas_quantize(v, plan.sharpen),
         "K6": lambda v: cas_cuda.cas_quantize_blocked(v, plan.sharpen, bh),
         "K7": lambda v: cas_cuda.cas_quantize_mono(v, plan.sharpen, bh),
     }[kid]
+    return lambda img: cas(woven(img))
 
-    def frame(img):
-        U, O = dense.r2c_rows(img.permute(2, 0, 1).contiguous(), banks)
-        return cas(dense.weave_rows(U, O, 2))
 
-    return frame
+def cas_split_fn(plan, dev, kid: str, bh):
+    """The CAS-split frame of a u=2 plan on `dev` (scripts/cas_split.py):
+    woven_fn's image, then the copy-quantize probe K10a (K3's tile) or K10b
+    (K7's band pipeline, bh rows per band): the (C, 2h, 2w) uint8 image
+    quantize_u8 gives."""
+    from vkresample_tpu_torch.ops import quantize_cuda
+
+    woven = woven_fn(plan, dev)
+    if kid == "K10a":
+        return lambda img: quantize_cuda.copy_quantize_tile(woven(img))
+    return lambda img: quantize_cuda.copy_quantize_mono(woven(img), bh)
 
 
 def main() -> int:
@@ -277,12 +328,12 @@ def main() -> int:
     from vkresample_tpu_torch import Engine, Precision, UpscalePlan, _build, build_upscale, upscale
     from vkresample_tpu_torch.fft import dense
     from vkresample_tpu_torch.io.png import read_png, write_png
-    from vkresample_tpu_torch.ops import cas_cuda, ycas_cuda
-    from vkresample_tpu_torch.ops.cas import to_i16_storage
+    from vkresample_tpu_torch.ops import cas_cuda, quantize_cuda, ycas_cuda
+    from vkresample_tpu_torch.ops.cas import quantize_u8, to_i16_storage
     from vkresample_tpu_torch.ops.weave import weave_grid_u8, weave_rows_u8
     from vkresample_tpu_torch.oracle.numpy_ref import upscale_oracle
     from vkresample_tpu_torch.pipeline.timing import time_amortized
-    from vkresample_tpu_torch.pipeline.upscale import planes_format
+    from vkresample_tpu_torch.pipeline.upscale import _pipeline, make_device_banks, planes_format
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -335,6 +386,10 @@ def main() -> int:
 
     k3_same = ("K3", lambda v, bh, s: cas_cuda.cas_quantize(v, s))
 
+    def quant_bound(v):
+        """A copy-quantize probe reads v once and writes as many uint8."""
+        return bound(v.numel() * 5, v.numel() * QUANT_OPS_PER_PIXEL)
+
     def k5_unfused(U, O, u, s):
         """The unfused form K5 replaces: weave_rows + K3."""
         return cas_cuda.cas_quantize(dense.weave_rows(U, O, u), s)
@@ -344,9 +399,10 @@ def main() -> int:
     # (the first is the route shape, timed in phase 6), dtypes (int16 and
     # f32 unless given), argument maker, bound from the arguments; exact:
     # identical to the plain version on every pixel; vs: (label, form, max
-    # LSB) it is held against in phase 3 and timed beside in phase 6 unless
-    # it is the unfused form; unfused: the unfused form it replaces, timed
-    # in phase 6
+    # LSB) it is held against in phase 3 (not when max LSB is None) and
+    # timed beside in phase 6 unless it is the unfused form; unfused: the
+    # unfused form it replaces, timed in phase 6; timed: how many of the
+    # first cases phase 6 times (1 unless given)
     kernels = {
         "K1": dict(
             name="cas_parity4_planes_u2", fn=cas_cuda.cas_parity4_planes_u2,
@@ -443,6 +499,34 @@ def main() -> int:
             args=ycas_args, bound=lambda a: ycas_bound(*a),
             unfused=lambda *a: weave_rows_u8(*ycas_unfused(*a)),
         ),
+        "K10a": dict(
+            name="copy_quantize_tile", wrapper=quantize_cuda.copy_quantize_tile,
+            fn=lambda v, s: quantize_cuda.copy_quantize_tile(v),
+            plain=lambda v, s: quantize_cuda.copy_quantize_reference(v),
+            source="vkresample_tpu_torch/csrc/copy_quantize.cu",
+            replaces="scripts/cas_split.py:57",
+            cases=[(C, 2048, 4096), (C, 2160, 3840), (2, 37, 201)],
+            dtypes=(torch.float32,),
+            args=lambda case, dt: planes(case, 1, dt),
+            bound=lambda a: quant_bound(a[0]),
+            exact=True,
+            vs=("K3", lambda v, s: cas_cuda.cas_quantize(v, s), None),
+        ),
+        "K10b": dict(
+            name="copy_quantize_mono", wrapper=quantize_cuda.copy_quantize_mono,
+            fn=lambda v, bh, s: quantize_cuda.copy_quantize_mono(v, bh),
+            plain=lambda v, bh, s: quantize_cuda.copy_quantize_reference(v),
+            source="vkresample_tpu_torch/csrc/copy_quantize.cu",
+            replaces="scripts/cas_split.py:57",
+            cases=[(shape, bh) for shape in ((C, 2048, 4096), (C, 2160, 3840), (2, 37, 201))
+                   for bh in (128, 64, 32, 1)],
+            dtypes=(torch.float32,),
+            args=lambda case, dt: (planes(case[0], 1, dt)[0], case[1]),
+            bound=lambda a: quant_bound(a[0]),
+            exact=True,
+            vs=("K7 at the same bh", lambda v, bh, s: cas_cuda.cas_quantize_mono(v, s, bh), None),
+            timed=2,
+        ),
     }
 
     def call(k, which, args):
@@ -475,8 +559,8 @@ def main() -> int:
                       f"identical {same:.6f}")
                 if k.get("exact"):
                     require(d == 0, f"{kid} differs from its plain version at {case}")
-                if "vs" in k:
-                    label, _, tol = k["vs"]
+                label, _, tol = k.get("vs", (None, None, None))
+                if tol is not None:
                     dv, same_v = u8_diff(got, call(k, "vs", args))
                     print(f"[3 kernels] {kid} {case} {dt} vs {label}: max|diff| {dv} LSB, "
                           f"identical {same_v:.6f} (tol {tol})")
@@ -578,6 +662,52 @@ def main() -> int:
         print(f"[4 routes] {run}: {w}x{h} -> {ab_plan.W}x{ab_plan.H}, max|diff| vs fp64 oracle "
               f"{d} LSB; launches {counts}")
         require(d <= TOL_LSB, f"{run} is {d} LSB from the oracle")
+
+    # the CAS-split runs: the A/B frame's woven image, then K10a or K10b,
+    # against the plain quantize of the same woven image on the card
+    split_fns = {}
+    want_q = quantize_u8(woven_fn(ab_plan, dev)(ab_x))
+    for run, (kid, bh) in CAS_SPLIT.items():
+        frame = split_fns[run] = cas_split_fn(ab_plan, dev, kid, bh)
+        zero_counters()
+        out = frame(ab_x)
+        torch.cuda.synchronize()
+        counts = launches_of(run, {kid})
+        require(out.shape == want_q.shape and out.dtype == torch.uint8,
+                f"{run}: bad output {tuple(out.shape)} {out.dtype}")
+        n_diff = int((out != want_q).sum())
+        print(f"[4 routes] {run}: {w}x{h} -> {ab_plan.W}x{ab_plan.H}, pixels differing from "
+              f"quantize_u8 of the woven image: {n_diff}; launches {counts}")
+        require(n_diff == 0, f"{run} differs from quantize_u8 of its woven image")
+
+    # TF32: a caller's matmul precision does not reach a cached pipeline
+    route = "quad -p 0"
+    (h, w), u, prec = ROUTES[route][:3]
+    plan = UpscalePlan(h=h, w=w, upscale=u, precision=Precision[prec])
+    x = torch.from_numpy(image(h, w)).to(dev)
+    caller = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        zero_counters()
+        out = fns[route](x)
+        torch.cuda.synchronize()
+        counts = launches_of(f"TF32 check {route}", {"K1"})
+        kept = torch.get_float32_matmul_precision()
+        unpinned = _pipeline(x, make_device_banks(plan, Engine.MXU, dev, planes_out=True),
+                             plan, Engine.MXU, True, True)  # the frame without the pin
+        torch.cuda.synchronize()
+    finally:
+        torch.set_float32_matmul_precision(caller)
+    key = (h, w, u, True)
+    d, d_tf32 = (int(np.abs(woven_hwc(o, "quad", plan).astype(np.int16)
+                            - oracles[key].astype(np.int16)).max()) for o in (out, unpinned))
+    d_pin, same_pin = u8_diff(out, unpinned)
+    print(f"[4 routes] TF32 check {route} under set_float32_matmul_precision('high'): max|diff| "
+          f"vs fp64 oracle {d} LSB; the frame without the pin: {d_tf32} LSB from the oracle, "
+          f"{d_pin} LSB from the pinned frame, identical {same_pin:.6f}; caller's setting "
+          f"after the call {kept!r}; launches {counts}")
+    require(d <= TOL_LSB, f"TF32 check: {route} is {d} LSB from the oracle under 'high'")
+    require(kept == "high", f"TF32 check: the call changed the caller's setting to {kept!r}")
     for kid, k in kernels.items():
         print(f"[4 routes] {kid} {k['name']} launches over the routes and runs: {k['launches']}")
 
@@ -631,13 +761,14 @@ def main() -> int:
         _, ms = time_amortized(fn, (x,), 20, dev)
         print(f"[6 times] {run} {w}x{h} x2 (r2c_x_only + {FUSED[run][2]}): {ms:.4f} ms/frame "
               f"(-n 20, CUDA events) on {card}")
-    for run, fn in ab_fns.items():
-        _, ms = time_amortized(fn, (ab_x,), 20, dev)
-        print(f"[6 times] {run} {ab_plan.w}x{ab_plan.h} x2 (r2c_rows + weave_rows + "
-              f"{CAS_AB[run][0]}): {ms:.4f} ms/frame (-n 20, CUDA events) on {card}")
+    for runs, fns_ in ((CAS_AB, ab_fns), (CAS_SPLIT, split_fns)):
+        for run, fn in fns_.items():
+            _, ms = time_amortized(fn, (ab_x,), 20, dev)
+            print(f"[6 times] {run} {ab_plan.w}x{ab_plan.h} x2 (r2c_rows + weave_rows + "
+                  f"{runs[run][0]}): {ms:.4f} ms/frame (-n 20, CUDA events) on {card}")
     for kid, k in kernels.items():
-        case = k["cases"][0]
-        for dt in k.get("dtypes", (torch.int16, torch.float32)):
+        for case, dt in ((case, dt) for case in k["cases"][:k.get("timed", 1)]
+                         for dt in k.get("dtypes", (torch.int16, torch.float32))):
             args = k["args"](case, dt)
             ms = cuda_ms(lambda: call(k, "fn", args), 50)
             plain_ms = cuda_ms(lambda: call(k, "plain", args), 10)

@@ -4,10 +4,14 @@
     python3 scripts/torch_route_profile.py all             # every route and run
     python3 scripts/torch_route_profile.py "quad -p 2" ...  # named routes or runs
 
-The routes, the fused-y runs and the woven-CAS A/B runs ("cas ab K3", "cas
-ab K6 bh=64" ..., "cas ab K7 bh=128") are chip_smoke.py's ROUTES, FUSED and
-CAS_AB (full frame sizes, 3 channels, a seeded random frame already on the
-device).  For each it prints, with the card's name and power limit:
+The routes, the fused-y runs, the woven-CAS A/B runs ("cas ab K3", "cas ab
+K6 bh=64" ..., "cas ab K7 bh=128") and the CAS-split runs ("cas split
+K10a", "cas split K10b bh=64", "cas split K10b bh=128") are chip_smoke.py's
+ROUTES, FUSED, CAS_AB and CAS_SPLIT (full frame sizes, 3 channels, a seeded
+random frame already on the device).  Every frame runs its GEMMs inside
+pipeline/upscale.py::fp32_matmul (the built pipelines and chip_smoke's
+frame functions pin it per call), so the CUDA-graph capture records fp32
+GEMMs too.  For each it prints, with the card's name and power limit:
 
   ms/frame      -n 20 through the entry point, CUDA events (as chip_smoke)
   graph         the same frame captured once in a CUDA graph and replayed
@@ -65,14 +69,16 @@ def _graph_ms(fn, x, n: int = 20) -> float:
 
 def route_fn(name, dev):
     """(plan, frame function) of a chip_smoke route, fused-y or A/B run."""
-    from chip_smoke import CAS_AB, CAS_AB_FRAME, FUSED, ROUTES, cas_ab_fn, fused_y_fn
+    from chip_smoke import (CAS_AB, CAS_AB_FRAME, CAS_SPLIT, FUSED, ROUTES, cas_ab_fn,
+                            cas_split_fn, fused_y_fn)
 
     from vkresample_tpu_torch import Engine, Precision, UpscalePlan, build_upscale
 
-    if name in CAS_AB:
-        (h, w), (kid, bh) = CAS_AB_FRAME, CAS_AB[name]
-        plan = UpscalePlan(h=h, w=w, upscale=2.0, precision=Precision.HALF)
-        return plan, cas_ab_fn(plan, dev, kid, bh)
+    for runs, make in ((CAS_AB, cas_ab_fn), (CAS_SPLIT, cas_split_fn)):
+        if name in runs:
+            (h, w), (kid, bh) = CAS_AB_FRAME, runs[name]
+            plan = UpscalePlan(h=h, w=w, upscale=2.0, precision=Precision.HALF)
+            return plan, make(plan, dev, kid, bh)
     if name in FUSED:
         (h, w), prec, kid, _ = FUSED[name]
         plan = UpscalePlan(h=h, w=w, upscale=2.0, precision=Precision[prec])
@@ -127,10 +133,11 @@ def main(argv) -> int:
         print("no CUDA device: this profile needs one GPU")
         return 1
     sys.path.insert(0, ROOT)
-    from chip_smoke import CAS_AB, FUSED, ROUTES
+    from chip_smoke import CAS_AB, CAS_SPLIT, FUSED, ROUTES
 
     names = ([n for n in ROUTES if "c2c" in n] if not argv
-             else list(ROUTES) + list(FUSED) + list(CAS_AB) if argv == ["all"] else argv)
+             else list(ROUTES) + list(FUSED) + list(CAS_AB) + list(CAS_SPLIT) if argv == ["all"]
+             else argv)
     card = _card()
     print(f"{card}  torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)

@@ -113,22 +113,25 @@ def load_kernels() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build_library())
-            # entry point -> arguments before the sharpen factor and the
-            # stream, which every entry takes last
+            # entry point -> arguments before the stream, which every entry
+            # takes last
             ptr, ptrs, i32 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
+            f32 = ctypes.c_float  # the sharpen factor
             for name, args in (
-                ("vkr_cas_quad_u2", [ptr] * 8 + [i32] * 4),    # P00..P11, O00..O11; C, h, Wh, is_i16
-                ("vkr_cas_parity_u2", [ptr] * 4 + [i32] * 4),  # U, O, E, D; C, h, W, is_i16
-                ("vkr_cas_woven", [ptr] * 2 + [i32] * 4),      # v, out; C, H, W, is_i16
-                ("vkr_cas_grid", [ptrs] * 2 + [i32] * 5),      # in[u*u], out[u*u]; u, C, h, W, is_i16
-                ("vkr_cas_rows_u", [ptr] * 3 + [i32] * 5),     # U, O, out; C, h, W, u, is_i16
-                ("vkr_cas_blocked", [ptr] * 4 + [i32] * 4),    # v, top, bot, out; C, H, W, bh
-                ("vkr_cas_mono", [ptr] * 2 + [i32] * 4),       # v, out; C, H, W, bh
-                ("vkr_ycas_parity_u2", [ptr] * 5 + [i32] * 5),  # U, T2, YT, E, D; C, h, W, r, is_i16
-                ("vkr_ycas_u2", [ptr] * 4 + [i32] * 5),        # U, T2, YT, out; C, h, W, r, is_i16
+                ("vkr_cas_quad_u2", [ptr] * 8 + [i32] * 4 + [f32]),    # P00..P11, O00..O11; C, h, Wh, is_i16
+                ("vkr_cas_parity_u2", [ptr] * 4 + [i32] * 4 + [f32]),  # U, O, E, D; C, h, W, is_i16
+                ("vkr_cas_woven", [ptr] * 2 + [i32] * 4 + [f32]),      # v, out; C, H, W, is_i16
+                ("vkr_cas_grid", [ptrs] * 2 + [i32] * 5 + [f32]),      # in[u*u], out[u*u]; u, C, h, W, is_i16
+                ("vkr_cas_rows_u", [ptr] * 3 + [i32] * 5 + [f32]),     # U, O, out; C, h, W, u, is_i16
+                ("vkr_cas_blocked", [ptr] * 4 + [i32] * 4 + [f32]),    # v, top, bot, out; C, H, W, bh
+                ("vkr_cas_mono", [ptr] * 2 + [i32] * 4 + [f32]),       # v, out; C, H, W, bh
+                ("vkr_ycas_parity_u2", [ptr] * 5 + [i32] * 5 + [f32]),  # U, T2, YT, E, D; C, h, W, r, is_i16
+                ("vkr_ycas_u2", [ptr] * 4 + [i32] * 5 + [f32]),        # U, T2, YT, out; C, h, W, r, is_i16
+                ("vkr_copy_quantize_tile", [ptr] * 2 + [i32] * 3),     # v, out; C, H, W
+                ("vkr_copy_quantize_mono", [ptr] * 2 + [i32] * 4),     # v, out; C, H, W, bh
             ):
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_int
-                fn.argtypes = args + [ctypes.c_float, ctypes.c_void_p]
+                fn.argtypes = args + [ctypes.c_void_p]
             _lib = lib
         return _lib

@@ -8,8 +8,8 @@ Flags and defaults are the reference's (VkResample.cpp:1795-1977):
 -n X (default 1) -i NAME -o NAME, plus the JAX CLI's -engine X, -c2c and
 -validate.  Parsing is the same hand-rolled argv scan as the JAX CLI
 (findFlag/getFlagValue semantics, VkResample.cpp:1782-1794).  The batched
-folder flags and -profile are not ported yet (ROADMAP.md modules items 7
-and 11).
+folder flags and -profile are not ported yet (ROADMAP.md modules items 4
+and 8).
 
 The command line runs on CUDA device -d and exits 1 without one; only a
 Python caller of main() may ask for the CPU (device="cpu"), which runs the
@@ -45,13 +45,13 @@ Extras:
 _VALIDATE_TOL = {0: 1, 1: 1, 2: 1}
 
 _NOT_PORTED_FLAGS = {
-    "-ifolder": "batched folder mode (ROADMAP.md modules item 7)",
-    "-ofolder": "batched folder mode (ROADMAP.md modules item 7)",
-    "-numfiles": "batched folder mode (ROADMAP.md modules item 7)",
-    "-numthreads": "batched folder mode (ROADMAP.md modules item 7)",
-    "-batch": "batched folder mode (ROADMAP.md modules item 7)",
-    "-resume": "batched folder mode (ROADMAP.md modules item 7)",
-    "-profile": "profiling (ROADMAP.md modules item 11)",
+    "-ifolder": "batched folder mode (ROADMAP.md modules item 4)",
+    "-ofolder": "batched folder mode (ROADMAP.md modules item 4)",
+    "-numfiles": "batched folder mode (ROADMAP.md modules item 4)",
+    "-numthreads": "batched folder mode (ROADMAP.md modules item 4)",
+    "-batch": "batched folder mode (ROADMAP.md modules item 4)",
+    "-resume": "batched folder mode (ROADMAP.md modules item 4)",
+    "-profile": "profiling (ROADMAP.md modules item 8)",
 }
 
 
@@ -167,6 +167,16 @@ def _make_plan(cfg, extras, h: int, w: int):
     return plan
 
 
+def _hbm_estimate_mb(plan) -> int:
+    """Printed device-memory footprint, the JAX CLI's estimate
+    (vkresample_tpu/cli.py:197-203), mirroring the reference's VRAM line
+    (VkResample.cpp:1450: inputBufferSize + 2*bufferSize)."""
+    cs = 16 if plan.precision.name == "DOUBLE" else 8  # complex element bytes
+    small = 3 * (plan.w // 2 + 1) * plan.h * cs
+    big = 3 * (plan.W // 2 + 1) * plan.H * cs
+    return (small + 2 * big) // 1024 // 1024
+
+
 def run_single(cfg, extras, device) -> int:
     import numpy as np
     import torch
@@ -181,8 +191,12 @@ def run_single(cfg, extras, device) -> int:
     except FileNotFoundError:
         print("Image not found")
         return 1
+    except (OSError, ValueError) as e:  # a file that exists but does not decode
+        print(f"Error: {e}")
+        return 1
     h, w = img.shape[:2]
     plan = _make_plan(cfg, extras, h, w)
+    print(f"HBM per device: {_hbm_estimate_mb(plan)} MB")
     device = torch.device(device)
     print("Device: " + (torch.cuda.get_device_name(device) if device.type == "cuda"
                         else f"{device} (plain PyTorch versions)"))

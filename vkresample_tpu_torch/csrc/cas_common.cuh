@@ -1,6 +1,7 @@
 // The per-pixel FidelityFX-CAS evaluation shared by the port's CAS kernels
 // (cas_quad.cu, cas_parity.cu, cas_woven.cu, cas_grid.cu, cas_rows.cu,
-// cas_blocked.cu, cas_mono.cu, ycas.cu).
+// cas_blocked.cu, cas_mono.cu, ycas.cu), and its final quantize, which
+// copy_quantize.cu runs alone.
 //
 // With L = min(|V|, 1) (int16 Q2.14 input scaled by 1/16384 first), every
 // output pixel is the 3x3 clamp-to-edge CAS of L (VkResample.cpp:887-923):
@@ -56,14 +57,17 @@ __device__ __forceinline__ CasRatio cas_ratio(
   return {pred ? a : cq, pred ? b : d};
 }
 
-// out = (c + sc*(n+s+w+e)) / (1 + 4*sc), x255, clamp, truncate to uint8.
+// (int)clamp(v*255, 0, 255) as uint8: ops/cas.py::quantize_u8.
+__device__ __forceinline__ uint8_t quantize_u8(float v) {
+  return (uint8_t)(int)fminf(fmaxf(__fmul_rn(v, 255.0f), 0.0f), 255.0f);
+}
+
+// out = (c + sc*(n+s+w+e)) / (1 + 4*sc), then quantize_u8.
 __device__ __forceinline__ uint8_t cas_out(float n, float w, float c, float e,
                                            float s, float sc) {
   const float nsum = __fadd_rn(__fadd_rn(n, s), __fadd_rn(w, e));
-  const float out = __fdiv_rn(__fadd_rn(c, __fmul_rn(sc, nsum)),
-                              __fadd_rn(1.0f, __fmul_rn(4.0f, sc)));
-  const float q = fminf(fmaxf(__fmul_rn(out, 255.0f), 0.0f), 255.0f);
-  return (uint8_t)(int)q;
+  return quantize_u8(__fdiv_rn(__fadd_rn(c, __fmul_rn(sc, nsum)),
+                               __fadd_rn(1.0f, __fmul_rn(4.0f, sc))));
 }
 
 __device__ __forceinline__ uint8_t cas_pixel(

@@ -7,8 +7,11 @@ Two codecs, same pixel semantics (decode forces 8-bit RGB):
   vkresample_tpu_torch/build/ and bound with ctypes.  Its planar encoders
   interleave the channels, and the parity and grid ones weave the uint8
   planes, inside their row loops.
-- zlib: a small stdlib PNG reader and writer for 8-bit gray, gray+alpha,
-  RGB and RGBA, non-interlaced, for machines without libpng.  Planes are
+- zlib: a small stdlib PNG codec for machines without libpng.  Its reader
+  takes every color type and bit depth, interlaced or not, to what the
+  native reader's libpng transforms give: palette entries looked up in
+  PLTE, 1/2/4-bit gray scaled to 0-255, 16-bit samples cut to their high
+  byte, alpha and tRNS dropped.  Its writer writes 8-bit RGB; planes are
   woven on the host first.
 
 The first call prints which codec is in use.  This is host I/O only; it
@@ -124,7 +127,11 @@ def _encode_err(rc, path) -> str:
 # ---------------------------------------------------------------------------
 
 _SIG = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # color type -> samples per pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # color type -> samples per pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (first row, first column, row step, column step)
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2),
+          (0, 1, 2, 2), (1, 0, 2, 1))
 
 
 def _paeth_row(line: bytes, prev: bytes, bpp: int) -> bytearray:
@@ -148,43 +155,19 @@ def _avg_row(line: bytes, prev: bytes, bpp: int) -> bytearray:
     return cur
 
 
-def _zlib_read(path: str) -> np.ndarray:
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != _SIG:
-        raise ValueError(f"not a PNG file: {path}")
-    pos, idat, ihdr = 8, [], None
-    while pos + 8 <= len(data):
-        (n,) = struct.unpack(">I", data[pos : pos + 4])
-        kind = data[pos + 4 : pos + 8]
-        body = data[pos + 8 : pos + 8 + n]
-        pos += 12 + n
-        if kind == b"IHDR":
-            ihdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if ihdr is None:
-        raise ValueError(f"PNG without IHDR: {path}")
-    w, h, depth, color, _, _, interlace = ihdr
-    if depth != 8 or color not in _CHANNELS or interlace != 0:
-        raise ValueError(
-            f"zlib PNG reader takes 8-bit non-interlaced gray/RGB(A) only: "
-            f"{path} has depth {depth}, color type {color}, interlace {interlace}"
-        )
-    bpp = _CHANNELS[color]
-    stride = w * bpp
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    raw = raw[: h * (stride + 1)].reshape(h, stride + 1)
-    out = np.empty((h, stride), np.uint8)
+def _unfilter(lines: np.ndarray, bpp: int, path: str) -> np.ndarray:
+    """Undo the filters of one image or Adam7 pass: (rows, 1 + stride)
+    scanlines, each led by its filter type, -> (rows, stride) bytes; the
+    first row's prior row is zeros."""
+    rows, stride = lines.shape[0], lines.shape[1] - 1
+    out = np.empty((rows, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        ftype, line = raw[y, 0], raw[y, 1:]
+    for y in range(rows):
+        ftype, line = lines[y, 0], lines[y, 1:]
         if ftype == 0:
             cur = line
-        elif ftype == 1:  # Sub: running sum per channel, mod 256
-            cur = np.cumsum(line.reshape(w, bpp), axis=0, dtype=np.uint64)
+        elif ftype == 1:  # Sub: running sum per byte of a pixel, mod 256
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint64)
             cur = (cur & 0xFF).astype(np.uint8).reshape(stride)
         elif ftype == 2:  # Up
             cur = line + prev
@@ -196,9 +179,81 @@ def _zlib_read(path: str) -> np.ndarray:
             raise ValueError(f"bad PNG filter type {ftype} in {path}")
         out[y] = cur
         prev = out[y]
-    px = out.reshape(h, w, bpp)
-    if bpp <= 2:  # gray (+alpha) -> RGB
-        return np.repeat(px[:, :, :1], 3, axis=2)
+    return out
+
+
+def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
+    """Unfiltered scanlines (n, stride) -> (n, width, channels) uint8
+    samples: 1/2/4-bit values unpacked from the most significant bits, the
+    high byte of each big-endian 16-bit sample."""
+    n = rows.shape[0]
+    if depth == 16:
+        return rows[:, 0::2].reshape(n, width, channels)
+    if depth == 8:
+        return rows.reshape(n, width, channels)
+    bits = np.unpackbits(rows, axis=1)[:, : width * depth].reshape(n, width, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=-1, dtype=np.uint8)[:, :, None]
+
+
+def _zlib_read(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _SIG:
+        raise ValueError(f"not a PNG file: {path}")
+    pos, idat, ihdr, plte = 8, [], None, None
+    while pos + 8 <= len(data):
+        (n,) = struct.unpack(">I", data[pos : pos + 4])
+        kind = data[pos + 4 : pos + 8]
+        body = data[pos + 8 : pos + 8 + n]
+        if len(body) < n:
+            raise ValueError(f"truncated PNG file ({kind.decode('latin-1')} chunk): {path}")
+        pos += 12 + n
+        if kind == b"IHDR" and n == 13:
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = body
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError(f"PNG without IHDR: {path}")
+    w, h, depth, color, _, _, interlace = ihdr
+    if depth not in _DEPTHS.get(color, ()) or interlace not in (0, 1) or w == 0 or h == 0:
+        raise ValueError(f"unsupported PNG: {path} is {w}x{h}, bit depth {depth}, "
+                         f"color type {color}, interlace {interlace}")
+    if color == 3 and plte is None:
+        raise ValueError(f"palette PNG without PLTE: {path}")
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"corrupt or truncated PNG image data in {path}: {e}") from e
+    ch = _CHANNELS[color]
+    bpp = max(1, ch * depth // 8)  # filter unit: bytes per pixel, at least 1
+    px = np.empty((h, w, ch), np.uint8)
+    pos = 0
+    for y0, x0, dy, dx in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        ph, pw = (h - y0 + dy - 1) // dy, (w - x0 + dx - 1) // dx
+        if ph == 0 or pw == 0:  # an empty pass of a tiny image has no scanlines
+            continue
+        stride = (pw * ch * depth + 7) // 8
+        size = ph * (stride + 1)
+        if pos + size > len(raw):
+            raise ValueError(f"truncated PNG image data in {path}")
+        rows = _unfilter(raw[pos : pos + size].reshape(ph, stride + 1), bpp, path)
+        px[y0::dy, x0::dx] = _samples(rows, pw, ch, depth)
+        pos += size
+    if color == 3:  # palette: indices past the PLTE entries read black, as in libpng
+        pal = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(plte, np.uint8)[: len(plte) // 3 * 3].reshape(-1, 3)[:256]
+        pal[: len(entries)] = entries
+        return pal[px[:, :, 0]]
+    if ch <= 2:  # gray (+alpha) -> RGB
+        g = px[:, :, 0]
+        if depth < 8:
+            g = g * np.uint8(255 // ((1 << depth) - 1))  # x255, x85, x17
+        return np.repeat(g[:, :, None], 3, axis=2)
     return np.ascontiguousarray(px[:, :, :3])
 
 
@@ -228,22 +283,23 @@ def _zlib_write(path: str, img: np.ndarray, level: int) -> None:
 
 def read_png(path: str) -> np.ndarray:
     """Decode a PNG to (h, w, 3) uint8 RGB (req_comp=3 semantics of the
-    reference's stbi_load call)."""
+    reference's stbi_load call).  FileNotFoundError when there is no file
+    at `path`; ValueError naming the fault when the file does not decode."""
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"Image not found: {path}")
     lib = _native()
     if lib is not None:
         w, h = ctypes.c_int(), ctypes.c_int()
         buf = lib.vkr_png_decode(os.fsencode(path), ctypes.byref(w), ctypes.byref(h))
         if not buf:
-            raise FileNotFoundError(f"Image not found: {path}")
+            _zlib_read(path)  # raises naming what is wrong with the file
+            raise ValueError(f"libpng cannot decode {path}")
         try:
             arr = np.ctypeslib.as_array(buf, shape=(w.value * h.value * 3,)).copy()
         finally:
             lib.vkr_free(buf)
         return arr.reshape(h.value, w.value, 3)
-    try:
-        return _zlib_read(path)
-    except (OSError, ValueError, zlib.error) as e:
-        raise FileNotFoundError(f"Image not found: {path}") from e
+    return _zlib_read(path)
 
 
 def write_png(path: str, img: np.ndarray, compression_level: int = 6) -> None:

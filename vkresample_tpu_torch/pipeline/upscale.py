@@ -32,13 +32,19 @@ Every entry point runs on the current CUDA device unless the caller names
 another (``device="cpu"`` runs the kernels' plain versions); without a
 CUDA device and without that request it raises RuntimeError.
 
-Numerics: every float32 GEMM runs in full fp32.  PyTorch's default already
-keeps TF32 off for matmuls, but cuDNN's default is on; both are set off
-explicitly when a pipeline is built (TF32 keeps ~3 decimal digits, which
-would cost whole u8 LSBs through the y GEMM).
+Numerics: every float32 GEMM runs in full fp32 (the JAX package pins a
+precision per matmul, core/config.py::Precision.matmul_precision); TF32
+keeps a 10-bit mantissa, which the <= 1 LSB bar against the fp64 oracle
+does not budget for.  Each call of a built pipeline runs inside
+fp32_matmul(): the matmul and cuDNN TF32 settings are pinned to full fp32
+for the call and the caller's own settings are restored when it returns or
+raises.  The flags are read when
+each op is dispatched on the host, so the asynchronous launches of the
+call see fp32 too; building a pipeline changes no setting.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, Optional
 
@@ -58,6 +64,32 @@ from ..ops.cas_cuda import (
 )
 from ..ops.spectrum import assemble_big_spectrum
 from ..ops.weave import weave_grid_u8, weave_rows_u8
+
+
+@contextlib.contextmanager
+def fp32_matmul():
+    """Run the block with float32 matmuls (and cuDNN convolutions and RNNs)
+    in full fp32, then restore the TF32 settings exactly as they were, also
+    when the block raises.  torch.set_float32_matmul_precision sets the
+    legacy matmul precision and the per-backend matmul fp32_precision
+    together; cuDNN goes through its per-backend fp32_precision settings
+    where the installed torch has them, else through cudnn.allow_tf32."""
+    b = torch.backends
+    if hasattr(b.cuda.matmul, "fp32_precision"):
+        flags = [(m, "fp32_precision", "ieee") for m in (b.cuda.matmul, b.cudnn.conv, b.cudnn.rnn)]
+    else:
+        flags = [(b.cudnn, "allow_tf32", False)]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in flags]
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    for m, name, value in flags:
+        setattr(m, name, value)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(precision)
+        for m, name, value in saved:
+            setattr(m, name, value)
 
 
 def _irfft2(G: torch.Tensor, H: int, W: int) -> torch.Tensor:
@@ -108,11 +140,11 @@ def unsupported_reason(plan: UpscalePlan) -> Optional[str]:
     """Why the port cannot run this plan yet (naming the ROADMAP.md item
     that ports it), or None when the plan is on the ported tiers."""
     if plan.precision is Precision.DOUBLE:
-        return "fp64 (-p 1) is not ported yet (ROADMAP.md modules item 6)"
+        return "fp64 (-p 1) is not ported yet (ROADMAP.md modules item 2)"
     if max(plan.h, plan.w, plan.H, plan.W) > DENSE_MAX:
         return (
             f"axes over {DENSE_MAX} ({plan.h}x{plan.w} -> {plan.H}x{plan.W}) "
-            "are not ported yet (ROADMAP.md modules item 8)"
+            "are not ported yet (ROADMAP.md modules item 5)"
         )
     return None
 
@@ -203,19 +235,18 @@ def _build(plan: UpscalePlan, device: torch.device, planes_out: bool,
     if planes_out and planes_format(plan) is None:
         raise ValueError(f"the plan has no parity-plane output: {plan}")
     engine = plan.resolve_engine()
-    torch.backends.cuda.matmul.allow_tf32 = False  # see the module docstring
-    torch.backends.cudnn.allow_tf32 = False
     banks = make_device_banks(plan, engine, device, planes_out)
 
     def fn(img):
-        img = torch.as_tensor(img)
-        if img.dtype != torch.uint8:
-            raise TypeError(f"expected uint8 image, got {img.dtype}")
-        if img.dim() == 2:
-            img = img[:, :, None]
-        if tuple(img.shape[:2]) != (plan.h, plan.w):
-            raise ValueError(f"image {tuple(img.shape)} does not match plan {plan}")
-        return _pipeline(img.to(device), banks, plan, engine, planes_out, planar_out)
+        with fp32_matmul():  # see the module docstring
+            img = torch.as_tensor(img)
+            if img.dtype != torch.uint8:
+                raise TypeError(f"expected uint8 image, got {img.dtype}")
+            if img.dim() == 2:
+                img = img[:, :, None]
+            if tuple(img.shape[:2]) != (plan.h, plan.w):
+                raise ValueError(f"image {tuple(img.shape)} does not match plan {plan}")
+            return _pipeline(img.to(device), banks, plan, engine, planes_out, planar_out)
 
     return fn
 
