@@ -11,7 +11,12 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
   3. kernels  each kernel against its plain PyTorch version on seeded
               inputs at its routes' shapes and small odd ones, int16 and
               f32 (<= 1 u8 LSB, >= 99.9 % of pixels identical); K4 at
-              u = 3 (full size) and u = 3, 4, 5, 7 (odd shape); K5 at u = 3
+              its route shapes (u = 3: 9 x (3, 720, 1280), 9 x (3, 360,
+              640); u = 4: 16 x (3, 540, 960)) and at every u = 1..8 with h
+              and W off its band and strip edges, W % 4 != 0, single rows
+              or columns and planes 2 or 4 bytes off alignment, identical on
+              every pixel to its plain version; K1 also identical to K4 at
+              u = 2 on the same planes; K5 at u = 3
               (full size) and u = 2, 3, 4, 5 (odd shape), identical on every
               pixel to its plain version and to weave_rows + K3; K8 and K9
               at both fused-y frames with the frame's y bank and at odd
@@ -39,6 +44,7 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
                 xla      -engine xla 1920x1080 -> 3840x2160, -p 0     K3
                 c2c grid u=2  2048x1024 -> 4096x2048, -p 2           K1
                 c2c grid u=3  1280x720 -> 3840x2160, -p 2 and -p 0   K4
+                c2c grid u=4  960x540 -> 3840x2160, -p 2             K4
                 c2c grid 1.5x 1280x720 -> 1920x1080, -p 2            K4
                 c2c woven upscale() u=3 1280x720, -p 2               K4
                 c2c chain 2.5x 1280x720 -> 3200x1800, -p 0           K3
@@ -73,8 +79,13 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
               (<= 1 LSB), a frame whose width is not a multiple of 128,
               and -c2c at u=2 (1920x1080 sample) and u=3 (600x400 frame)
   6. times    ms/frame of every route, fused-y, A/B and CAS-split run
-              (-n 20, CUDA events), each kernel against its plain version,
-              the unfused forms K5, K8 and K9 replace (weave_rows + K3;
+              (-n 20, CUDA events), each kernel against its plain version
+              (50 wrapper calls, CUDA events; K4 at its three route shapes,
+              and beside them, printed only, its device time alone: 50
+              calls replayed from one CUDA graph, since its wrapper takes
+              about as long on the host as its kernel on the device; K1
+              beside K4 at u = 2), the unfused forms K5, K8 and K9 replace
+              (weave_rows + K3;
               torch.matmul y GEMM, Q2.14 store in -p 2, + K2, woven for K9),
               K3 beside K6 and K7 at their shape, K10a beside K3 and K10b
               beside K7 (bh 128 and 64) at (3, 2048, 4096), and the device
@@ -125,6 +136,7 @@ ROUTES = {
     "c2c grid u=2 -p 2": ((1024, 2048), 2.0, "HALF", "AUTO", False, "planes", {"K1"}),
     "c2c grid u=3 -p 2": ((720, 1280), 3.0, "HALF", "AUTO", False, "planes", {"K4"}),
     "c2c grid u=3 -p 0": ((720, 1280), 3.0, "SINGLE", "AUTO", False, "planes", {"K4"}),
+    "c2c grid u=4 -p 2": ((540, 960), 4.0, "HALF", "AUTO", False, "planes", {"K4"}),
     "c2c grid 1.5x -p 2": ((720, 1280), 1.5, "HALF", "AUTO", False, "planes", {"K4"}),
     "c2c woven upscale() u=3 -p 2": ((720, 1280), 3.0, "HALF", "AUTO", False, "woven", {"K4"}),
     "c2c chain 2.5x -p 0": ((720, 1280), 2.5, "SINGLE", "AUTO", False, "woven", {"K3"}),
@@ -181,6 +193,32 @@ def cuda_ms(fn, n: int) -> float:
     start.record()
     for _ in range(n):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, n: int) -> float:
+    """ms per call of fn on the device alone: n calls captured in one CUDA
+    graph and replayed, so the wrapper's host work (checks, output
+    allocations, the ctypes call) is not in the reading."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
@@ -351,9 +389,19 @@ def main() -> int:
         ps = [torch.rand(shape, generator=gen, device=dev) * 1.3 - 0.1 for _ in range(n)]
         return [to_i16_storage(p) for p in ps] if dtype == torch.int16 else ps
 
+    def misaligned(p):
+        """p as a contiguous view one element (2 or 4 bytes) past the start
+        of its buffer."""
+        buf = torch.empty(p.numel() + 1, dtype=p.dtype, device=dev)
+        buf[1:].copy_(p.reshape(-1))
+        return buf[1:].view(p.shape)
+
     def grid_args(case, dt):
-        shape, u = case
-        return planes(shape, u * u, dt), u
+        """case (shape, u), or (shape, u, "misaligned") for planes that start
+        2 or 4 bytes past a 16-byte boundary."""
+        shape, u = case[:2]
+        ps = planes(shape, u * u, dt)
+        return ([misaligned(p) for p in ps] if len(case) > 2 else ps), u
 
     def rows_args(case, dt):
         (c, h, W), u = case
@@ -412,6 +460,9 @@ def main() -> int:
             cases=[(C, 1024, 2048), (2, 37, 200)],
             args=lambda case, dt: planes(case, 4, dt),
             bound=lambda a: cas_bound(a[0].shape, 4, a[0].element_size()),
+            # the grid kernel's u=2 instance computes the same planes
+            vs=("K4 at u=2",
+                lambda *a: cas_cuda.cas_parity_grid_planes(a[:4], 2, a[4]), 0),
         ),
         "K2": dict(
             name="cas_parity_planes_u2", fn=cas_cuda.cas_parity_planes_u2,
@@ -436,9 +487,21 @@ def main() -> int:
             plain=cas_cuda.cas_parity_grid_planes_reference,
             source="vkresample_tpu_torch/csrc/cas_grid.cu",
             replaces="vkresample_tpu/ops/cas_pallas.py:2152",
-            cases=[((C, 720, 1280), 3)] + [((2, 37, 200), u) for u in (3, 4, 5, 7)],
+            # the route shapes (u=3 720p -> 4K, 1.5x, u=4 qHD -> 4K), then h
+            # and W off the band and strip edges, W % 4 != 0, single rows or
+            # columns, and misaligned planes, at every u
+            cases=[((C, 720, 1280), 3), ((C, 360, 640), 3), ((C, 540, 960), 4)]
+            + [((2, 37, 200), u) for u in (3, 4, 5, 7)]
+            + [((2, 37, 201), u) for u in range(1, 9)]
+            + [((2, 19, 136), u) for u in range(1, 9)]
+            + [((1, 1, 5), 1), ((1, 1, 70), 3), ((2, 40, 1), 4), ((1, 9, 66), 6),
+               ((1, 17, 3), 2), ((1, 1, 1), 8)]
+            + [((2, 21, 136), u, "misaligned") for u in (1, 3, 8)]
+            + [((C, 540, 960), 4, "misaligned")],
             args=grid_args,
             bound=lambda a: cas_bound(a[0][0].shape, a[1] ** 2, a[0][0].element_size()),
+            exact=True,
+            timed=3,
         ),
         "K5": dict(
             name="cas_quantize_rows_u", fn=cas_cuda.cas_quantize_rows_u,
@@ -783,6 +846,16 @@ def main() -> int:
             for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
                            ("bound_by", bound_by)):
                 k.setdefault(key, v)  # the int16 reading goes into the JSON line
+    # K4's wrapper takes about as long on the host per call as its kernel
+    # takes on the device, so the eager times above are partly the host's:
+    # the device alone, printed only
+    k4 = kernels["K4"]
+    for case, dt in ((case, dt) for case in k4["cases"][:k4["timed"]]
+                     for dt in (torch.int16, torch.float32)):
+        args = k4["args"](case, dt)
+        print(f"[6 times] K4 {k4['name']} {case} {dt}: device alone "
+              f"{graph_ms(lambda: call(k4, 'fn', args), 50):.4f} ms (50 calls replayed "
+              f"from one CUDA graph) on {card}")
     grid_u8 = [torch.randint(0, 256, (C, 720, 1280), generator=gen, device=dev,
                              dtype=torch.uint8) for _ in range(9)]
     ms = cuda_ms(lambda: weave_grid_u8(grid_u8, 3), 50)

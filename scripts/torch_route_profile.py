@@ -22,7 +22,8 @@ GEMMs too.  For each it prints, with the card's name and power limit:
                 the profiled frame's own span is printed too (the
                 profiler's host overhead stretches it)
   launches      device kernels per frame
-  top kernels   the largest device-time sums per frame, by kernel name
+  top kernels   the largest device-time sums per frame, by kernel name,
+                and the port's CAS kernels where they are not among them
 
 Needs a CUDA device; exits 1 without one.
 """
@@ -121,7 +122,8 @@ def profile_route(name, dev, card) -> None:
     print(f"[{name}] {w}x{h} -> {plan.W}x{plan.H}: {ms:.4f} ms/frame; graph {graph}; "
           f"busy {busy:.4f} ms/frame (idle {max(0.0, 1 - busy / ms):.3f}; profiled frame "
           f"{span:.4f} ms); {launches:.0f} kernel launches/frame; {card}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:8] + [e for e in ranked[8:] if "cas_" in e.key]:
         print(f"[{name}]   {e.self_device_time_total / 1e3 / FRAMES:.4f} ms/frame "
               f"x{e.count / FRAMES:.0f}  {e.key[:110]}")
 

@@ -6,7 +6,9 @@ Tolerances: against the JAX kernel, <= 1 LSB and >= 99.9 % of pixels
 identical (both evaluate the rsqrt blend in float32 with different
 operation fusion, so truncation to uint8 can flip on values within an ulp
 of an integer; measured: every case identical on >= 99.99 % of pixels).
-Against the fp64 oracle (sqrt/divide form in f64), <= 1 LSB."""
+Against the fp64 oracle (sqrt/divide form in f64), <= 1 LSB.  On the card
+the kernel equals its plain version on every pixel: both evaluate
+cas_common.cuh's operations in the same order."""
 import numpy as np
 import pytest
 import torch
@@ -43,12 +45,14 @@ def _agree(got, want):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int16"])
-@pytest.mark.parametrize("shape", [(2, 32, 128), (2, 20, 200)])
-@pytest.mark.parametrize("u", [3, 4])
+@pytest.mark.parametrize("shape", [(2, 32, 128), (2, 20, 200), (1, 1, 37), (2, 9, 1)])
+@pytest.mark.parametrize("u", [3, 4, 2, 5, 8])
 def test_grid_plain_matches_jax_kernel(u, shape, dtype):
     """K4's plain version against JAX cas_parity_grid_planes (interpret),
-    at a 128-aligned width and a non-aligned one (the JAX kernel's
-    replicate-pad reroute)."""
+    at a 128-aligned width, a non-aligned one (the JAX kernel's
+    replicate-pad reroute), one plane row (h = 1) and one plane column (W =
+    1), at every u the card's kernel serves from 2 to its limit: the plain
+    version is the yardstick the kernel is held to on the card."""
     import jax.numpy as jnp
 
     from vkresample_tpu.ops.cas import to_i16_storage as jst
@@ -101,25 +105,66 @@ def test_grid_wrapper_on_cpu_uses_plain_version():
         cas_parity_grid_planes(P[:8] + [P[8].to(torch.int16)], 3, 0.2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
-@pytest.mark.parametrize("u,shape", [(3, (3, 720, 1280)), (3, (2, 37, 200)), (4, (2, 37, 200)),
-                                     (5, (2, 37, 200)), (7, (2, 37, 200)), (8, (1, 1, 1))])
-def test_cuda_grid_kernel_matches_plain_version(u, shape, dtype):
-    """On the card: K4 against its plain version."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
-    g = torch.Generator(device="cuda").manual_seed(4)
-    P = [torch.rand(shape, generator=g, device="cuda") * 1.3 - 0.1 for _ in range(u * u)]
-    if dtype == torch.int16:
-        P = [cas.to_i16_storage(p) for p in P]
+def _cuda_planes(u, shape, dtype, offset=0):
+    """u*u seeded planes on the card; with `offset` each is a contiguous
+    view that starts `offset` elements into its buffer (2 or 4 bytes for
+    offset 1), so the kernel takes its per-element staging copies."""
+    g = torch.Generator(device="cuda").manual_seed(4 + u)
+    n = int(np.prod(shape))
+    P = []
+    for _ in range(u * u):
+        buf = torch.rand(n + offset, generator=g, device="cuda") * 1.3 - 0.1
+        if dtype == torch.int16:
+            buf = cas.to_i16_storage(buf)
+        P.append(buf[offset:].view(shape))
+    return P
+
+
+def _cuda_exact(P, u):
     before = cas_parity_grid_planes.launches
     got = cas_parity_grid_planes(P, u, 0.2)
     torch.cuda.synchronize()
     assert cas_parity_grid_planes.launches == before + 1
     want = cas_parity_grid_planes_reference(P, u, 0.2)
     dmax, same = _agree(torch.stack(got).cpu().numpy(), torch.stack(want).cpu().numpy())
-    assert dmax <= 1 and same >= MIN_IDENTICAL
+    assert dmax == 0, (dmax, same)
+
+
+# the route shapes (u=3 720p and 1.5x, u=4 qHD), then per u: h and W off the
+# kernel's band (16, 8 or 4 rows) and strip (64 columns) with W % 4 != 0
+# (byte stores, per-element staging), W a multiple of 8 but not of 64
+# (16-byte staging, a partial strip), and single rows or columns
+CUDA_CASES = (
+    [(3, (3, 720, 1280)), (3, (2, 37, 200)), (4, (2, 37, 200)), (5, (2, 37, 200)),
+     (7, (2, 37, 200)), (8, (1, 1, 1)), (3, (3, 360, 640)), (4, (3, 540, 960))]
+    + [(u, (2, 37, 201)) for u in range(1, 9)]
+    + [(u, (2, 19, 136)) for u in range(1, 9)]
+    + [(1, (1, 1, 5)), (3, (1, 1, 70)), (4, (2, 40, 1)), (6, (1, 9, 66)), (2, (1, 17, 3))]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("u,shape", CUDA_CASES)
+def test_cuda_grid_kernel_matches_plain_version(u, shape, dtype):
+    """On the card: K4 identical on every pixel to its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    _cuda_exact(_cuda_planes(u, shape, dtype), u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("u,shape", [(1, (2, 21, 136)), (3, (2, 21, 136)), (4, (3, 540, 960)),
+                                     (8, (1, 13, 136))])
+def test_cuda_grid_kernel_misaligned_planes(u, shape, dtype):
+    """On the card: planes that start 2 (int16) or 4 (float32) bytes past a
+    16-byte boundary at widths the 16-byte copies would take: the kernel
+    stages them element by element, identical on every pixel to its plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    _cuda_exact(_cuda_planes(u, shape, dtype, offset=1), u)
 
 
 @pytest.mark.cuda

@@ -264,7 +264,10 @@ def cas_parity_grid_planes(planes, u: int, sharpen: float):
     """u-generic grid-parity fused CAS: u*u pre-CAS phase planes (row-major
     (ry, rx), each (..., h, W)), int16 Q2.14 or float32, to u*u uint8
     planes of the same shape.  CUDA tensors go through csrc/cas_grid.cu
-    (u <= GRID_MAX_U), CPU tensors take the plain version."""
+    (u <= GRID_MAX_U; one kernel instance per u and dtype, 16-byte staging
+    copies where W * itemsize % 16 == 0 and every plane is 16-byte aligned,
+    32-bit stores where W % 4 == 0), identical on every pixel to the plain
+    version; CPU tensors take the plain version."""
     planes = tuple(planes)
     if len(planes) != u * u:
         raise ValueError(f"expected {u * u} planes for u={u}, got {len(planes)}")
