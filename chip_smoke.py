@@ -16,8 +16,11 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
               and W off its band and strip edges, W % 4 != 0, single rows
               or columns and planes 2 or 4 bytes off alignment, identical on
               every pixel to its plain version; K1 also identical to K4 at
-              u = 2 on the same planes; K5 at u = 3
-              (full size) and u = 2, 3, 4, 5 (odd shape), identical on every
+              u = 2 on the same planes; K5 at its route shapes (u = 3: U
+              (3, 720, 3840) + O (3, 1440, 3840); u = 4: U (3, 540, 3840) +
+              O (3, 1620, 3840)) and at u = 2..8 and 11 with u*h and W off
+              its band and strip edges, W % 4 != 0, single rows or columns
+              and U and O 2 or 4 bytes off alignment, identical on every
               pixel to its plain version and to weave_rows + K3; K8 and K9
               at both fused-y frames with the frame's y bank and at odd
               shapes (h = 1, 37; W = 200) with T2 present and absent; K6
@@ -80,11 +83,11 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
               and -c2c at u=2 (1920x1080 sample) and u=3 (600x400 frame)
   6. times    ms/frame of every route, fused-y, A/B and CAS-split run
               (-n 20, CUDA events), each kernel against its plain version
-              (50 wrapper calls, CUDA events; K4 at its three route shapes,
-              and beside them, printed only, its device time alone: 50
-              calls replayed from one CUDA graph, since its wrapper takes
-              about as long on the host as its kernel on the device; K1
-              beside K4 at u = 2), the unfused forms K5, K8 and K9 replace
+              (50 wrapper calls, CUDA events; K4 at its three route shapes
+              and K5 at its two, and beside them, printed only, their device
+              time alone: 50 calls replayed from one CUDA graph, since K4's
+              wrapper takes about as long on the host as its kernel on the
+              device; K1 beside K4 at u = 2), the unfused forms K5, K8 and K9 replace
               (weave_rows + K3;
               torch.matmul y GEMM, Q2.14 store in -p 2, + K2, woven for K9),
               K3 beside K6 and K7 at their shape, K10a beside K3 and K10b
@@ -404,8 +407,11 @@ def main() -> int:
         return ([misaligned(p) for p in ps] if len(case) > 2 else ps), u
 
     def rows_args(case, dt):
-        (c, h, W), u = case
-        return planes((c, h, W), 1, dt)[0], planes((c, h * (u - 1), W), 1, dt)[0], u
+        """case (shape, u), or (shape, u, "misaligned") for U and O that start
+        2 or 4 bytes past a 16-byte boundary."""
+        (c, h, W), u = case[:2]
+        U, O = planes((c, h, W), 1, dt)[0], planes((c, h * (u - 1), W), 1, dt)[0]
+        return (misaligned(U), misaligned(O), u) if len(case) > 2 else (U, O, u)
 
     def ycas_args(case, dt):
         """(U, T2, YT): r None = the frame's own y bank, else a random bank
@@ -508,13 +514,23 @@ def main() -> int:
             plain=cas_cuda.cas_quantize_rows_u_reference,
             source="vkresample_tpu_torch/csrc/cas_rows.cu",
             replaces="vkresample_tpu/ops/cas_pallas.py:473",
-            cases=[((C, 720, 3840), 3)] + [((2, 37, 200), u) for u in (2, 3, 4, 5)],
+            # the route shapes (u=3 720p -> 4K, u=4 qHD -> 4K), then u*h and W
+            # off the band and strip edges at u = 2..8 and 11, W % 4 != 0,
+            # single rows or columns, and misaligned U and O
+            cases=[((C, 720, 3840), 3), ((C, 540, 3840), 4)]
+            + [((2, 37, 200), u) for u in range(2, 9)]
+            + [((2, 37, 131), 3), ((2, 21, 202), 4), ((2, 13, 132), 5), ((2, 64, 136), 2),
+               ((1, 9, 66), 11), ((1, 1, 1), 3), ((1, 1, 70), 2), ((2, 40, 1), 4),
+               ((1, 1, 129), 6)]
+            + [((2, 37, 200), 3, "misaligned"), ((2, 21, 136), 4, "misaligned"),
+               ((C, 540, 3840), 4, "misaligned")],
             args=rows_args,
             bound=lambda a: cas_bound(a[0].shape[:-2] + (a[2] * a[0].shape[-2], a[0].shape[-1]),
                                       1, a[0].element_size()),
             exact=True,
             unfused=k5_unfused,
             vs=("weave_rows + K3", k5_unfused, 0),
+            timed=2,
         ),
         "K6": dict(
             name="cas_quantize_blocked", wrapper=cas_cuda.cas_quantize_blocked,
@@ -846,16 +862,17 @@ def main() -> int:
             for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
                            ("bound_by", bound_by)):
                 k.setdefault(key, v)  # the int16 reading goes into the JSON line
-    # K4's wrapper takes about as long on the host per call as its kernel
-    # takes on the device, so the eager times above are partly the host's:
-    # the device alone, printed only
-    k4 = kernels["K4"]
-    for case, dt in ((case, dt) for case in k4["cases"][:k4["timed"]]
-                     for dt in (torch.int16, torch.float32)):
-        args = k4["args"](case, dt)
-        print(f"[6 times] K4 {k4['name']} {case} {dt}: device alone "
-              f"{graph_ms(lambda: call(k4, 'fn', args), 50):.4f} ms (50 calls replayed "
-              f"from one CUDA graph) on {card}")
+    # the eager times above include each wrapper's host work, which for K4
+    # takes about as long as its kernel: the device alone of the redesigned
+    # kernels K4 and K5, printed only
+    for kid in ("K4", "K5"):
+        k = kernels[kid]
+        for case, dt in ((case, dt) for case in k["cases"][:k["timed"]]
+                         for dt in (torch.int16, torch.float32)):
+            args = k["args"](case, dt)
+            print(f"[6 times] {kid} {k['name']} {case} {dt}: device alone "
+                  f"{graph_ms(lambda: call(k, 'fn', args), 50):.4f} ms (50 calls replayed "
+                  f"from one CUDA graph) on {card}")
     grid_u8 = [torch.randint(0, 256, (C, 720, 1280), generator=gen, device=dev,
                              dtype=torch.uint8) for _ in range(9)]
     ms = cuda_ms(lambda: weave_grid_u8(grid_u8, 3), 50)

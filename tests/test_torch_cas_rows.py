@@ -25,7 +25,10 @@ from vkresample_tpu_torch.oracle import numpy_ref as toracle
 from vkresample_tpu_torch.pipeline import upscale as tpipe
 
 MIN_IDENTICAL = 0.999
-JAX_CASES = [(2, 64, 128), (3, 48, 128)]  # (u, h, W), the JAX tests' geometries
+# (u, h, W): the JAX tests' geometries, and u = 4 (the u=4 route's u) where h
+# is a multiple of the 16-row band with h >= 32 and W % 128 == 0, so the JAX
+# kernel runs its Pallas body and not its weave fallback
+JAX_CASES = [(2, 64, 128), (3, 48, 128), (4, 48, 128)]
 ODD_CASES = [(4, 7, 37), (5, 7, 37), (3, 1, 1), (2, 37, 200), (3, 5, 202)]
 
 
@@ -155,11 +158,31 @@ def test_u3_plus_route_runs_k5(monkeypatch, u, prec):
     assert np.abs(out.numpy().astype(np.int32) - want).max() <= 1
 
 
+# (u, h, W, misaligned inputs): the two route shapes; u = 2..8 and u = 11 with
+# u*h and W off the kernel's 64-row band and 128-column strip; W % 4 != 0
+# and W % 8 != 0 (byte stores, per-element staging where W * sizeof(T) %
+# 16 != 0); single rows and columns; U, O or both one element (2 or 4
+# bytes) past a 16-byte boundary, which takes the per-element staging form
+CUDA_CASES = (
+    [(3, 720, 3840, ""), (4, 540, 3840, ""), (3, 5, 202, "")]
+    + [(u, 37, 200, "") for u in range(2, 9)]
+    + [(3, 37, 131, ""), (4, 21, 202, ""), (5, 13, 132, ""), (2, 64, 136, ""),
+       (11, 9, 66, ""), (3, 1, 1, ""), (2, 1, 70, ""), (4, 40, 1, ""), (6, 1, 129, "")]
+    + [(3, 37, 200, "U"), (4, 21, 136, "O"), (2, 19, 264, "UO"), (4, 540, 3840, "UO")]
+)
+
+
+def _misaligned(t):
+    """t as a contiguous view one element past the start of its buffer."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
-@pytest.mark.parametrize("u,h,W", [(3, 720, 3840), (2, 37, 200), (3, 37, 200), (4, 37, 200),
-                                   (5, 37, 200), (3, 1, 1)])
-def test_cuda_rows_kernel_matches_plain_and_woven(u, h, W, dtype):
+@pytest.mark.parametrize("u,h,W,misaligned", CUDA_CASES)
+def test_cuda_rows_kernel_matches_plain_and_woven(u, h, W, misaligned, dtype):
     """On the card: K5 equals its plain version and weave_rows + K3 on
     every pixel."""
     if not torch.cuda.is_available():
@@ -169,6 +192,8 @@ def test_cuda_rows_kernel_matches_plain_and_woven(u, h, W, dtype):
     O = torch.rand((3, h * (u - 1), W), generator=g, device="cuda") * 1.3 - 0.1
     if dtype == torch.int16:
         U, O = cas.to_i16_storage(U), cas.to_i16_storage(O)
+    U = _misaligned(U) if "U" in misaligned else U
+    O = _misaligned(O) if "O" in misaligned else O
     before = cas_quantize_rows_u.launches
     got = cas_quantize_rows_u(U, O, u, 0.2)
     torch.cuda.synchronize()

@@ -90,6 +90,40 @@ __device__ __forceinline__ uint8_t cas_pixel_sqrt(
   return cas_out(n, w, c, e, s, sc);
 }
 
+// Staging helpers of the redesigned kernels (cas_grid.cu, cas_rows.cu):
+// cp.async copies of the stored dtype into shared memory, and the L
+// values of 4 adjacent stored values when they go into registers.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// One element: a 4-byte cp.async for float32; cp.async has no 2-byte form,
+// so an int16 goes through a register.
+__device__ __forceinline__ void copy_elem(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void copy_elem(int16_t* dst, const int16_t* src) { *dst = __ldg(src); }
+
+// The L values of 4 adjacent stored values (16 bytes of float32, 8 of int16).
+__device__ __forceinline__ void load4(float (&d)[4], const float* p) {
+  const float4 m = *reinterpret_cast<const float4*>(p);
+  d[0] = clip_len(m.x);
+  d[1] = clip_len(m.y);
+  d[2] = clip_len(m.z);
+  d[3] = clip_len(m.w);
+}
+__device__ __forceinline__ void load4(float (&d)[4], const int16_t* p) {
+  const short4 m = *reinterpret_cast<const short4*>(p);
+  d[0] = clip_len((int16_t)m.x);
+  d[1] = clip_len((int16_t)m.y);
+  d[2] = clip_len((int16_t)m.z);
+  d[3] = clip_len((int16_t)m.w);
+}
+
 // 3x3 CAS of the woven window centred on tile[r][q] (row pitch kSW);
 // kSqrt picks cas_pixel_sqrt (K6's blend) over cas_pixel.
 template <int kSW, bool kSqrt = false>

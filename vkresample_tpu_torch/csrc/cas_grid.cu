@@ -130,37 +130,6 @@ constexpr size_t window_bytes() {
   return sizeof(T) * (size_t)U * U * (GridShape<U>::kRows + 2) * Window<T>::kPitch;
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-// One element: a 4-byte cp.async for float32; cp.async has no 2-byte form,
-// so an int16 goes through a register.
-__device__ __forceinline__ void copy_elem(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void copy_elem(int16_t* dst, const int16_t* src) { *dst = __ldg(src); }
-
-// The L values of 4 adjacent stored values (16 bytes of float32, 8 of int16).
-__device__ __forceinline__ void load4(float (&d)[4], const float* p) {
-  const float4 m = *reinterpret_cast<const float4*>(p);
-  d[0] = clip_len(m.x);
-  d[1] = clip_len(m.y);
-  d[2] = clip_len(m.z);
-  d[3] = clip_len(m.w);
-}
-__device__ __forceinline__ void load4(float (&d)[4], const int16_t* p) {
-  const short4 m = *reinterpret_cast<const short4*>(p);
-  d[0] = clip_len((int16_t)m.x);
-  d[1] = clip_len((int16_t)m.y);
-  d[2] = clip_len((int16_t)m.z);
-  d[3] = clip_len((int16_t)m.w);
-}
-
 // Start the copies of the windows of work item (channel base cbase, plane
 // rows t0-1 .. t0+R, plane columns s0-1 .. s0+kStrip) of all U*U planes
 // into win: kVec, 16-byte copies of the interior and per-element halo
