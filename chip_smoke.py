@@ -15,8 +15,13 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
               640); u = 4: 16 x (3, 540, 960)) and at every u = 1..8 with h
               and W off its band and strip edges, W % 4 != 0, single rows
               or columns and planes 2 or 4 bytes off alignment, identical on
-              every pixel to its plain version; K1 also identical to K4 at
-              u = 2 on the same planes; K5 at its route shapes (u = 3: U
+              every pixel to its plain version; K1 (K4's U = 2 instance) at
+              its route shape 4 x (3, 1024, 2048) and at the same kinds of
+              edge cases, misaligned planes among them, identical on every
+              pixel to its plain version; K3 (K5's kernel at u = 1) at its
+              route shape (3, 2160, 3840) and at K5's edge set at u = 1,
+              a misaligned image among them, identical on every pixel to
+              its plain version; K5 at its route shapes (u = 3: U
               (3, 720, 3840) + O (3, 1440, 3840); u = 4: U (3, 540, 3840) +
               O (3, 1620, 3840)) and at u = 2..8 and 11 with u*h and W off
               its band and strip edges, W % 4 != 0, single rows or columns
@@ -52,7 +57,9 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
                 c2c woven upscale() u=3 1280x720, -p 2               K4
                 c2c chain 2.5x 1280x720 -> 3200x1800, -p 0           K3
                 xla c2c  -engine xla 1920x1080 -> 3840x2160, -p 0    K3
-              then the fused-y runs, the rows route's x pass
+              and prints which staging form (16-byte or per element) each
+              route's K1 or K3 call took; then the fused-y runs, the rows
+              route's x pass
               (dense.r2c_x_only) followed by a fused y-GEMM + CAS kernel,
               against the oracle (<= 1 LSB) and the rows route's output
               (<= 1 LSB; >= 99.9 % identical in -p 0, >= 99.5 % in -p 2,
@@ -84,12 +91,12 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
   6. times    ms/frame of every route, fused-y, A/B and CAS-split run
               (-n 20, CUDA events), each kernel against its plain version
               (50 wrapper calls, CUDA events; K4 at its three route shapes
-              and K5 at its two, and beside them, printed only, their device
-              time alone: 50 calls replayed from one CUDA graph, since K4's
-              wrapper takes about as long on the host as its kernel on the
-              device; K1 beside K4 at u = 2), the unfused forms K5, K8 and K9 replace
-              (weave_rows + K3;
-              torch.matmul y GEMM, Q2.14 store in -p 2, + K2, woven for K9),
+              and K5 at its two, and beside them, printed only, the device
+              time alone of K1, K3, K4 and K5: 50 calls replayed from one
+              CUDA graph, since K4's wrapper takes about as long on the
+              host as its kernel on the device), the unfused forms K5, K8
+              and K9 replace (weave_rows + K3; torch.matmul y GEMM, Q2.14
+              store in -p 2, + K2, woven for K9),
               K3 beside K6 and K7 at their shape, K10a beside K3 and K10b
               beside K7 (bh 128 and 64) at (3, 2048, 4096), and the device
               grid weave
@@ -399,6 +406,17 @@ def main() -> int:
         buf[1:].copy_(p.reshape(-1))
         return buf[1:].view(p.shape)
 
+    def tagged(case):
+        """(shape, misaligned?) of a K1 or K3 case: a shape, or (shape,
+        "misaligned") for inputs 2 or 4 bytes past a 16-byte boundary."""
+        return (case[0], True) if case[-1] == "misaligned" else (case, False)
+
+    def image_args(case, dt, n):
+        """n seeded planes of a K1 (n = 4) or K3 (n = 1) case."""
+        shape, mis = tagged(case)
+        ps = planes(shape, n, dt)
+        return [misaligned(p) for p in ps] if mis else ps
+
     def grid_args(case, dt):
         """case (shape, u), or (shape, u, "misaligned") for planes that start
         2 or 4 bytes past a 16-byte boundary."""
@@ -461,14 +479,17 @@ def main() -> int:
         "K1": dict(
             name="cas_parity4_planes_u2", fn=cas_cuda.cas_parity4_planes_u2,
             plain=cas_cuda.cas_parity4_planes_u2_reference,
-            source="vkresample_tpu_torch/csrc/cas_quad.cu",
+            source="vkresample_tpu_torch/csrc/cas_grid.cu",
             replaces="vkresample_tpu/ops/cas_pallas.py:1432",
-            cases=[(C, 1024, 2048), (2, 37, 200)],
-            args=lambda case, dt: planes(case, 4, dt),
+            # the route shape (2048x1024 -> 4096x2048), then h and Wh off the
+            # 16-row band and 64-column strip, Wh % 4 != 0, Wh % 8 != 0,
+            # single rows or columns, and misaligned planes
+            cases=[(C, 1024, 2048), (2, 37, 200), (2, 37, 201), (2, 19, 136), (2, 21, 202),
+                   (2, 13, 132), (2, 65, 70), (1, 1, 70), (2, 40, 1), (1, 17, 3), (1, 1, 1)]
+            + [((2, 21, 136), "misaligned"), ((C, 1024, 2048), "misaligned")],
+            args=lambda case, dt: image_args(case, dt, 4),
             bound=lambda a: cas_bound(a[0].shape, 4, a[0].element_size()),
-            # the grid kernel's u=2 instance computes the same planes
-            vs=("K4 at u=2",
-                lambda *a: cas_cuda.cas_parity_grid_planes(a[:4], 2, a[4]), 0),
+            exact=True,
         ),
         "K2": dict(
             name="cas_parity_planes_u2", fn=cas_cuda.cas_parity_planes_u2,
@@ -482,11 +503,19 @@ def main() -> int:
         "K3": dict(
             name="cas_quantize", fn=cas_cuda.cas_quantize,
             plain=cas_cuda.cas_quantize_reference,
-            source="vkresample_tpu_torch/csrc/cas_woven.cu",
+            source="vkresample_tpu_torch/csrc/cas_rows.cu",
             replaces="vkresample_tpu/ops/cas_pallas.py:543",
-            cases=[(C, 2160, 3840), (2, 37, 201)],
-            args=lambda case, dt: planes(case, 1, dt),
+            # the route shape (-engine xla 1080p -> 4K), the chains' shapes,
+            # then K5's edge set at u = 1: H and W off the 64-row band and
+            # 128-column strip, W % 4 != 0, W % 8 != 0, H = 1, W = 1, and a
+            # misaligned image
+            cases=[(C, 2160, 3840), (C, 1080, 1920), (C, 1800, 3200), (2, 37, 201),
+                   (2, 37, 200), (2, 65, 131), (2, 21, 202), (2, 13, 132), (2, 64, 136),
+                   (2, 130, 129), (1, 1, 70), (1, 1, 129), (2, 40, 1), (1, 1, 1)]
+            + [((2, 37, 200), "misaligned"), ((C, 2160, 3840), "misaligned")],
+            args=lambda case, dt: image_args(case, dt, 1),
             bound=lambda a: cas_bound(a[0].shape, 1, a[0].element_size()),
+            exact=True,
         ),
         "K4": dict(
             name="cas_parity_grid_planes", fn=cas_cuda.cas_parity_grid_planes,
@@ -694,6 +723,9 @@ def main() -> int:
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
         counts = launches_of(route, runs)
+        for kid in sorted(runs & {"K1", "K3"}):
+            print(f"[4 routes] {route}: {kid} staging form "
+                  f"{kernels[kid]['fn'].staging}")
         got = route_out[route] = woven_hwc(out, fmt, plan)
         require(got.shape == (plan.H, plan.W, C) and got.dtype == np.uint8,
                 f"{route}: bad output {got.shape} {got.dtype}")
@@ -864,10 +896,10 @@ def main() -> int:
                 k.setdefault(key, v)  # the int16 reading goes into the JSON line
     # the eager times above include each wrapper's host work, which for K4
     # takes about as long as its kernel: the device alone of the redesigned
-    # kernels K4 and K5, printed only
-    for kid in ("K4", "K5"):
+    # kernels K1, K3, K4 and K5, printed only
+    for kid in ("K1", "K3", "K4", "K5"):
         k = kernels[kid]
-        for case, dt in ((case, dt) for case in k["cases"][:k["timed"]]
+        for case, dt in ((case, dt) for case in k["cases"][:k.get("timed", 1)]
                          for dt in (torch.int16, torch.float32)):
             args = k["args"](case, dt)
             print(f"[6 times] {kid} {k['name']} {case} {dt}: device alone "

@@ -9,7 +9,10 @@ random uint8 frame (numpy seed 0), dense.r2c_rows without a storage codec
 4096); then one kernel.  Each CAS kernel is paired with its copy-quantize
 probe, which moves the same data and only quantizes:
 
-  K3 (csrc/cas_woven.cu)             with K10a (K3's tile staging)
+  K3 (csrc/cas_rows.cu at u=1)       with K10a (the tile staging of K3's
+                                     first design, which K3 no longer
+                                     runs: the gap is now not K3's
+                                     arithmetic alone)
   K7 (csrc/cas_mono.cu) at bh 64, 128 with K10b (K7's band pipeline), same bh
 
 For each pair, in one process and in the script's alternating order (copy,

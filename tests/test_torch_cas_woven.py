@@ -6,7 +6,8 @@ Tolerances: against the JAX kernels, <= 1 LSB and >= 99.9 % of pixels
 identical (both evaluate the same rsqrt blend in float32 with different
 operation fusion, so truncation to uint8 can flip on values within an ulp
 of an integer; the K1 bar of test_torch_cas.py).  Against the fp64 oracle
-(sqrt/divide form in f64), <= 1 LSB."""
+(sqrt/divide form in f64), <= 1 LSB.  On the card K3 (csrc/cas_rows.cu's
+kernel at u = 1) equals its plain version on every pixel."""
 import numpy as np
 import pytest
 import torch
@@ -147,23 +148,59 @@ def test_wrappers_reject_bad_inputs():
         cas_quantize(torch.zeros(8), 0.2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
-@pytest.mark.parametrize("shape", [(3, 2160, 3840), (2, 37, 201), (1, 1, 1)])
-def test_cuda_woven_kernel_matches_plain_version(shape, dtype):
-    """On the card: K3 against its plain version."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
-    g = torch.Generator(device="cuda").manual_seed(2)
-    v = torch.rand(shape, generator=g, device="cuda") * 1.3 - 0.1
+def _cuda_woven(shape, dtype, seed, offset=0):
+    """A seeded image on the card; with `offset` a contiguous view that
+    starts `offset` elements into its buffer (2 or 4 bytes for offset 1),
+    so the kernel takes its per-element staging copies."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.rand(int(np.prod(shape)) + offset, generator=g, device="cuda") * 1.3 - 0.1
     if dtype == torch.int16:
-        v = cas.to_i16_storage(v)
+        buf = cas.to_i16_storage(buf)
+    return buf[offset:].view(shape)
+
+
+def _cuda_woven_exact(v):
     before = cas_quantize.launches
     got = cas_quantize(v, 0.2)
     torch.cuda.synchronize()
     assert cas_quantize.launches == before + 1
-    dmax, same = _agree(got.cpu().numpy(), cas_quantize_reference(v, 0.2).cpu().numpy())
-    assert dmax <= 1 and same >= MIN_IDENTICAL
+    assert torch.equal(got, cas_quantize_reference(v, 0.2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("shape", [(3, 2160, 3840), (2, 37, 201), (1, 1, 1)])
+def test_cuda_woven_kernel_matches_plain_version(shape, dtype):
+    """On the card: K3 identical to its plain version on every pixel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    _cuda_woven_exact(_cuda_woven(shape, dtype, seed=2))
+
+
+# K5's edge set at u = 1 (K3 is K5's kernel there): H and W off the 64-row
+# band and the 128-column strip; W % 4 != 0 (byte stores) and W % 8 != 0
+# (per-element staging of int16, where W * 2 % 16 != 0); H = 1; W = 1; then
+# an image one element (2 or 4 bytes) past a 16-byte boundary at widths the
+# 16-byte copies would take, the route shape among them
+WOVEN_EDGE_CASES = (
+    [((2, 37, 200), 0), ((2, 65, 131), 0), ((2, 21, 202), 0), ((2, 13, 132), 0),
+     ((2, 64, 136), 0), ((2, 130, 129), 0), ((1, 1, 70), 0), ((1, 1, 129), 0),
+     ((2, 40, 1), 0), ((3, 1080, 1920), 0), ((3, 1800, 3200), 0)]
+    + [((2, 37, 200), 1), ((2, 21, 136), 1), ((3, 2160, 3840), 1)]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("shape,offset", WOVEN_EDGE_CASES)
+def test_cuda_woven_kernel_edge_shapes_and_misaligned_image(shape, offset, dtype):
+    """On the card: K3 identical on every pixel to its plain version off its
+    band and strip edges, at odd widths, single rows and columns, the chain
+    routes' shapes, and on a misaligned image (the per-element staging
+    form)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    _cuda_woven_exact(_cuda_woven(shape, dtype, seed=3 + sum(shape), offset=offset))
 
 
 @pytest.mark.cuda

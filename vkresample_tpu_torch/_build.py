@@ -34,6 +34,25 @@ _lib = None
 # what the last load did, for set-up reporting (chip_smoke.py)
 last_build = {"compiled": False, "seconds": 0.0, "path": None}
 
+# The library's C entry points, each defined by one extern "C" function in
+# one csrc/*.cu, and their arguments before the stream, which every entry
+# takes last; each returns a cudaError_t as int.
+_PTR, _PTRS, _I32 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
+_F32 = ctypes.c_float  # the sharpen factor
+ENTRY_POINTS = {
+    "vkr_cas_quad_u2": [_PTR] * 8 + [_I32] * 4 + [_F32],    # P00..P11, O00..O11; C, h, Wh, is_i16
+    "vkr_cas_parity_u2": [_PTR] * 4 + [_I32] * 4 + [_F32],  # U, O, E, D; C, h, W, is_i16
+    "vkr_cas_woven": [_PTR] * 2 + [_I32] * 4 + [_F32],      # v, out; C, H, W, is_i16
+    "vkr_cas_grid": [_PTRS] * 2 + [_I32] * 5 + [_F32],      # in[u*u], out[u*u]; u, C, h, W, is_i16
+    "vkr_cas_rows_u": [_PTR] * 3 + [_I32] * 5 + [_F32],     # U, O, out; C, h, W, u, is_i16
+    "vkr_cas_blocked": [_PTR] * 4 + [_I32] * 4 + [_F32],    # v, top, bot, out; C, H, W, bh
+    "vkr_cas_mono": [_PTR] * 2 + [_I32] * 4 + [_F32],       # v, out; C, H, W, bh
+    "vkr_ycas_parity_u2": [_PTR] * 5 + [_I32] * 5 + [_F32],  # U, T2, YT, E, D; C, h, W, r, is_i16
+    "vkr_ycas_u2": [_PTR] * 4 + [_I32] * 5 + [_F32],        # U, T2, YT, out; C, h, W, r, is_i16
+    "vkr_copy_quantize_tile": [_PTR] * 2 + [_I32] * 3,      # v, out; C, H, W
+    "vkr_copy_quantize_mono": [_PTR] * 2 + [_I32] * 4,      # v, out; C, H, W, bh
+}
+
 
 def _nvcc() -> str:
     path = shutil.which("nvcc")
@@ -113,23 +132,7 @@ def load_kernels() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build_library())
-            # entry point -> arguments before the stream, which every entry
-            # takes last
-            ptr, ptrs, i32 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
-            f32 = ctypes.c_float  # the sharpen factor
-            for name, args in (
-                ("vkr_cas_quad_u2", [ptr] * 8 + [i32] * 4 + [f32]),    # P00..P11, O00..O11; C, h, Wh, is_i16
-                ("vkr_cas_parity_u2", [ptr] * 4 + [i32] * 4 + [f32]),  # U, O, E, D; C, h, W, is_i16
-                ("vkr_cas_woven", [ptr] * 2 + [i32] * 4 + [f32]),      # v, out; C, H, W, is_i16
-                ("vkr_cas_grid", [ptrs] * 2 + [i32] * 5 + [f32]),      # in[u*u], out[u*u]; u, C, h, W, is_i16
-                ("vkr_cas_rows_u", [ptr] * 3 + [i32] * 5 + [f32]),     # U, O, out; C, h, W, u, is_i16
-                ("vkr_cas_blocked", [ptr] * 4 + [i32] * 4 + [f32]),    # v, top, bot, out; C, H, W, bh
-                ("vkr_cas_mono", [ptr] * 2 + [i32] * 4 + [f32]),       # v, out; C, H, W, bh
-                ("vkr_ycas_parity_u2", [ptr] * 5 + [i32] * 5 + [f32]),  # U, T2, YT, E, D; C, h, W, r, is_i16
-                ("vkr_ycas_u2", [ptr] * 4 + [i32] * 5 + [f32]),        # U, T2, YT, out; C, h, W, r, is_i16
-                ("vkr_copy_quantize_tile", [ptr] * 2 + [i32] * 3),     # v, out; C, H, W
-                ("vkr_copy_quantize_mono", [ptr] * 2 + [i32] * 4),     # v, out; C, H, W, bh
-            ):
+            for name, args in ENTRY_POINTS.items():
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_int
                 fn.argtypes = args + [ctypes.c_void_p]

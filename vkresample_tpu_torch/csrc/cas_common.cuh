@@ -1,5 +1,5 @@
 // The per-pixel FidelityFX-CAS evaluation shared by the port's CAS kernels
-// (cas_quad.cu, cas_parity.cu, cas_woven.cu, cas_grid.cu, cas_rows.cu,
+// (cas_grid.cu: K4 and K1; cas_rows.cu: K5 and K3; cas_parity.cu,
 // cas_blocked.cu, cas_mono.cu, ycas.cu), and its final quantize, which
 // copy_quantize.cu runs alone.
 //
@@ -124,8 +124,9 @@ __device__ __forceinline__ void load4(float (&d)[4], const int16_t* p) {
   d[3] = clip_len((int16_t)m.w);
 }
 
-// 3x3 CAS of the woven window centred on tile[r][q] (row pitch kSW);
-// kSqrt picks cas_pixel_sqrt (K6's blend) over cas_pixel.
+// 3x3 CAS of the woven window centred on tile[r][q] (row pitch kSW), for
+// the float tile kernels (cas_parity.cu, cas_blocked.cu); kSqrt picks
+// cas_pixel_sqrt (K6's blend) over cas_pixel.
 template <int kSW, bool kSqrt = false>
 __device__ __forceinline__ uint8_t cas_at(float (*tile)[kSW], int r, int q,
                                           float sharpen) {

@@ -1,9 +1,15 @@
-// u-generic grid-parity fused CAS + quantize (Hopper, sm_90a).
+// u-generic grid-parity fused CAS + quantize (K4), and at u = 2 the
+// quad-parity CAS (K1) (Hopper, sm_90a).
 //
-// Replaces the Pallas kernel family behind
-// vkresample_tpu/ops/cas_pallas.py::cas_parity_grid_planes (stencil math
-// _grid_planes, kernel bodies _grid_strip_kernel and
-// _grid_strip_slots_kernel).
+// Replaces two Pallas kernel families of vkresample_tpu/ops/cas_pallas.py:
+// - cas_parity_grid_planes (stencil math _grid_planes, kernel bodies
+//   _grid_strip_kernel and _grid_strip_slots_kernel): entry vkr_cas_grid,
+//   any u = 1..8;
+// - cas_parity4_planes_u2 (stencil math _quad_planes, _cas_core,
+//   _cas_blend; kernel bodies _quad_kernel, _quad_strip_kernel and
+//   _quad_strip_slots_kernel), the u=2 quad route (the CLI's route) and the
+//   c2c grid at p = 2: entry vkr_cas_quad_u2, the U = 2 instance with the
+//   four planes passed as eight pointers.
 //
 // What it computes.  The transform hands over u*u pre-CAS phase planes
 // P[ry][rx] (row-major), each (C, h, W), int16 Q2.14 (x 1/16384) or
@@ -11,16 +17,18 @@
 // s] of size (C, u*h, u*W).  With L = min(|V|, 1), every output pixel is
 // the 3x3 clamp-to-edge FidelityFX-CAS of L (cas_common.cuh::cas_pixel),
 // written back as u*u uint8 planes of the same layout, so the woven image
-// exists neither in device memory nor on the host.  u=2 is K1 (cas_quad.cu);
-// the c2c grid route sends its p >= 3 planes (integer u, or the numerator
-// of p/q) here.
+// exists neither in device memory nor on the host.  u=2 is K1; the c2c grid
+// route sends its p >= 3 planes (integer u, or the numerator of p/q) to
+// vkr_cas_grid.
 //
 // Bound on this card.  About 40 flops per output pixel against 2-4 bytes
 // read and 1 written: device memory bounds it.  At 1280x720 -> 3840x2160
 // (u=3, nine (3, 720, 1280) planes) it reads 49.8 MB of int16 (99.5 MB of
 // float32) and writes 24.9 MB: 22.3 us (int16) and 37.1 us (float32) at
 // 3.35 TB/s; at 1280x720 -> 1920x1080 (nine (3, 360, 640) planes) a
-// quarter of that.
+// quarter of that.  K1 at the flagship 2048x1024 -> 4096x2048 (four (3,
+// 1024, 2048) planes) reads 50.3 MB of int16 (100.7 MB of float32) and
+// writes 25.2 MB: 22.5 us (int16) and 37.6 us (float32).
 //
 // What held the first design back.  It staged the woven (8u+2) x (32u+2)
 // halo tile as float, one scalar load per element, each with a division by
@@ -30,6 +38,11 @@
 // loops over a runtime u that did not unroll, and went out as a byte store.
 // So it was bound by instructions, not bytes: int16 took 0.2109 ms against
 // float32's 0.1824 at 9 x (3, 720, 1280), though it reads half the bytes.
+// K1 had its own kernel of that kind until it moved here: a 32 x 8 block
+// staged the woven 18 x 66 float window, one scalar load per element with
+// a parity decode and a row and column clamp, and wrote byte stores to the
+// four planes (0.1267 ms int16, 0.1310 float32 at four (3, 1024, 2048)
+// planes).
 //
 // Design.
 // - u is a template parameter (U = 1..8, dispatched by a switch in the
@@ -88,7 +101,14 @@
 // on the card's own time at the u=3 route shapes and still some 4x the
 // bound.  What is left is mostly the per-output CAS evaluation (cas_pixel's
 // min/max tree, rsqrt, IEEE divide and truncating convert), which the
-// copies of other resident blocks hide only in part.
+// copies of other resident blocks hide only in part.  K1 on the U = 2
+// instance (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6): four (3, 1024,
+// 2048) planes take 0.0884-0.0890 ms int16 and 0.0891-0.0898 float32 on the
+// device alone (scripts/torch_cas_kernels.py, chip_smoke.py phase 6), the
+// old quad kernel 0.1230-0.1245 / 0.1267-0.1281 in the same calls; per
+// output that is no slower than U = 3 at its route shape (0.0890 for 24.9
+// M outputs), so U = 2 keeps the U <= 3 constexprs (59 / 60 registers, no
+// spill, per -Xptxas -v).
 #include "cas_common.cuh"
 
 namespace {
@@ -338,4 +358,24 @@ extern "C" int vkr_cas_grid(const void* const* in, void* const* out, int u,
     case 7: return launch_u<7>(planes, C, h, W, is_i16, sharpen, st);
     default: return launch_u<8>(planes, C, h, W, is_i16, sharpen, st);
   }
+}
+
+// K1 (loaded with ctypes).  p*: the four contiguous (C, h, Wh) planes
+// P[ry][rx] of one dtype (is_i16: int16 Q2.14, else float32); o*: four
+// contiguous (C, h, Wh) uint8 outputs, in the same order.  The U = 2
+// instance of K4, with the eight pointers in row-major (ry, rx) order in
+// its plane struct.  Launches on `stream`, does not synchronise, returns the
+// cudaError_t of the launch.
+extern "C" int vkr_cas_quad_u2(const void* p00, const void* p01,
+                               const void* p10, const void* p11,
+                               void* o00, void* o01, void* o10, void* o11,
+                               int C, int h, int Wh, int is_i16,
+                               float sharpen, void* stream) {
+  if (C <= 0 || h <= 0 || Wh <= 0) return (int)cudaErrorInvalidValue;
+  if (2LL * h > 0x7fffffffLL || 2LL * Wh > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const GridPlanes planes = {
+      {p00, p01, p10, p11},
+      {static_cast<uint8_t*>(o00), static_cast<uint8_t*>(o01), static_cast<uint8_t*>(o10),
+       static_cast<uint8_t*>(o11)}};
+  return launch_u<2>(planes, C, h, Wh, is_i16, sharpen, static_cast<cudaStream_t>(stream));
 }

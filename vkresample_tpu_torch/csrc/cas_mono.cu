@@ -8,8 +8,8 @@
 // What it computes.  A float32 pre-CAS image v (C, H, W) goes to the uint8
 // image (C, H, W): the 3x3 clamp-to-edge CAS of L = min(|v|, 1) with the
 // rsqrt blend (cas_common.cuh::cas_pixel), then (int)clamp(out*255, 0,
-// 255) -- K3's arithmetic, so the output equals cas_woven.cu's on every
-// pixel.
+// 255) -- K3's arithmetic, so the output equals K3's (cas_rows.cu at u =
+// 1) on every pixel.
 //
 // Bound on this card.  About 40 flops per output pixel against 4 bytes
 // read and 1 written: device memory bounds it.  At (3, 2048, 4096) it reads

@@ -1,9 +1,14 @@
-// Fused row weave + woven CAS + quantize for the integer u >= 3 rows route
-// (Hopper, sm_90a).
+// Fused row weave + woven CAS + quantize (K5), and at u = 1 the woven CAS +
+// quantize (K3) (Hopper, sm_90a).
 //
-// Replaces the Pallas kernel family behind
-// vkresample_tpu/ops/cas_pallas.py::cas_quantize_rows_u (kernel bodies
-// _rows_kernel and _rows_slots_kernel; stencil math _cas_band).
+// Replaces two Pallas kernel families of vkresample_tpu/ops/cas_pallas.py:
+// - cas_quantize_rows_u (kernel bodies _rows_kernel and _rows_slots_kernel;
+//   stencil math _cas_band), the integer u >= 3 rows route: entry
+//   vkr_cas_rows_u, any u >= 2;
+// - cas_quantize_pallas (kernel bodies _cas_kernel and _cas_slots_kernel;
+//   the same _cas_band), the routes whose transform emits a woven image
+//   (the r2c and c2c chains, fractional factors and u = 1, and -engine
+//   xla): entry vkr_cas_woven, the same kernel at u = 1.
 //
 // What it computes.  The row-split transform hands over the sample output
 // rows U (C, h, W) and the non-sample rows O (C, h*(u-1), W), both int16
@@ -13,7 +18,10 @@
 // clamp-to-edge CAS of L = min(|V|, 1) (cas_common.cuh::cas_pixel), written
 // to the woven uint8 image (C, u*h, W).  The woven pre-CAS image never
 // exists in device memory: the route's two passes, a row weave then the
-// woven CAS (cas_woven.cu), become one.
+// woven CAS, become one.  At u = 1 there are no non-sample rows: V is U
+// itself, any (C, H, W) image already in CAS units, and the kernel is the
+// plain woven CAS (vkr_cas_woven passes the image as U and as O, which it
+// never reads).
 //
 // Bound on this card.  About 40 flops per output pixel against 2-4 bytes
 // read and 1 written: device memory bounds it.  At both route shapes,
@@ -22,14 +30,19 @@
 // reads U + O once, 49.8 MB of int16 (99.5 MB of float32), and writes 24.9
 // MB of uint8: 22.3 us (int16) and 37.1 us (float32) at 3.35 TB/s.
 //
-// What held the first design back.  It was cas_woven.cu's tile: a block of
-// 32 columns x 16 woven rows staged its (16+2) x (32+2) window as float,
-// one scalar 2- or 4-byte load per element through a row pointer read from
-// a shared-memory table, with a column clamp per element and every row's
-// loads starting one column left of the strip; then every output read its
-// 9 neighbours from shared memory and left as a byte store.  So it was
-// bound by instructions, not bytes: int16 took 0.1477 ms against float32's
-// 0.1498 at u=3, though it reads half the bytes.
+// K3 at 1920x1080 -> 3840x2160 (-engine xla), (3, 2160, 3840), reads and
+// writes the same bytes: the same bounds.
+//
+// What held the first design back.  It was the woven CAS's first tile,
+// which K3 kept until it moved here: a block of 32 columns x 16 woven rows
+// staged its (16+2) x (32+2) window as float, one scalar 2- or 4-byte load
+// per element (K5's through a row pointer read from a shared-memory
+// table), with a column clamp per element and every row's loads starting
+// one column left of the strip; then every output read its 9 neighbours
+// from shared memory and left as a byte store.  So it was bound by
+// instructions, not bytes: K5 took 0.1477 ms int16 against float32's
+// 0.1498 at u=3, K3 0.1366 against 0.1387, though int16 reads half the
+// bytes.
 //
 // Design.
 // - A block takes the work item (channel, band of kBand woven rows, strip
@@ -45,9 +58,9 @@
 //   clamped to [0, u*h-1] (row -1 is woven row 0, U's first row; row u*h
 //   is woven row u*h-1, O's last) and split into (t, k) = (Y / u, Y % u),
 //   U[t] for k == 0 and O[t*(u-1) + k-1] otherwise, once per window row,
-//   so u stays a run-time argument (every u >= 2 runs) at one division per
-//   row.  Window rows past the halo of the last woven row and columns past
-//   W are not copied.
+//   so u stays a run-time argument (every u >= 1 runs) at one division per
+//   row; at u = 1 every row is U[Y].  Window rows past the halo of the last
+//   woven row and columns past W are not copied.
 // - Each thread owns kLane = 4 adjacent columns and walks down a run of
 //   kRun woven rows, keeping three rows of kLane+2 L values in registers:
 //   each row step is one 8- or 16-byte shared load plus the west and east
@@ -64,8 +77,9 @@
 //   8 rows; 3 % halo rows); the window takes 19.0 KB (int16) or 35.9 KB
 //   (float32).
 //
-// The output equals weave_rows + cas_woven.cu's CAS on every pixel: the
-// same L values reach the same cas_pixel, for any u >= 2 and h, W >= 1.
+// The output equals weave_rows + the woven CAS (this kernel at u = 1) on
+// every pixel: the same L values reach the same cas_pixel, for any u >= 1
+// and h, W >= 1.
 // The TPU kernel's band/slot DMA schedules and its W % 128 weave fallback
 // have no counterpart here.
 //
@@ -87,7 +101,12 @@
 // copied through registers (a global load each warp waited for in every
 // window row), int16 took 0.0965 against float32's 0.0879-0.0913; in that
 // build kBand = 128 took 0.101, kStrip = 64 0.126-0.128 and 128 threads
-// 0.111 (int16 u=3).
+// 0.111 (int16 u=3).  K3 at u = 1, (3, 2160, 3840): 0.0853-0.0858 ms int16,
+// 0.0901-0.0910 float32 on the device alone (scripts/torch_cas_kernels.py,
+// chip_smoke.py phase 6), beside K5 at u=3 on as many outputs in the same
+// calls, 0.0871-0.0875 / 0.0916-0.0925, and the old K3 tile's 0.1336-0.1352
+// / 0.1362-0.1396: the division per window row costs nothing measurable at
+// u = 1, so there is no single-source instance.
 #include "cas_common.cuh"
 
 namespace {
@@ -254,18 +273,10 @@ int launch(const T* U, const T* O, uint8_t* out, int C, int h, int W, int u, flo
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// C entry point (loaded with ctypes).  U: contiguous (C, h, W), O:
-// contiguous (C, h*(u-1), W), one dtype (is_i16: int16 Q2.14, else
-// float32); out: contiguous (C, u*h, W) uint8; any u >= 2, h, W >= 1.
-// Launches on `stream`, does not synchronise, returns the cudaError_t of the
-// launch.
-extern "C" int vkr_cas_rows_u(const void* U, const void* O, void* out, int C,
-                              int h, int W, int u, int is_i16, float sharpen,
-                              void* stream) {
-  if (C <= 0 || h <= 0 || W <= 0 || u < 2) return (int)cudaErrorInvalidValue;
-  if ((long long)u * h > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+// The launch of either entry, checked entry-side: U and O of one dtype
+// (is_i16: int16 Q2.14, else float32).
+int launch_dtype(const void* U, const void* O, void* out, int C, int h, int W, int u,
+                 int is_i16, float sharpen, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   uint8_t* o = static_cast<uint8_t*>(out);
   if (is_i16) {
@@ -274,4 +285,30 @@ extern "C" int vkr_cas_rows_u(const void* U, const void* O, void* out, int C,
   }
   return launch(static_cast<const float*>(U), static_cast<const float*>(O), o, C, h, W, u,
                 sharpen, st);
+}
+
+}  // namespace
+
+// C entry points (loaded with ctypes).  Each launches on `stream`, does not
+// synchronise and returns the cudaError_t of the launch.
+//
+// K5.  U: contiguous (C, h, W), O: contiguous (C, h*(u-1), W), one dtype
+// (is_i16: int16 Q2.14, else float32); out: contiguous (C, u*h, W) uint8;
+// any u >= 2, h, W >= 1 (the JAX cas_quantize_rows_u's u >= 2).
+extern "C" int vkr_cas_rows_u(const void* U, const void* O, void* out, int C,
+                              int h, int W, int u, int is_i16, float sharpen,
+                              void* stream) {
+  if (C <= 0 || h <= 0 || W <= 0 || u < 2) return (int)cudaErrorInvalidValue;
+  if ((long long)u * h > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  return launch_dtype(U, O, out, C, h, W, u, is_i16, sharpen, stream);
+}
+
+// K3.  v: contiguous (C, H, W) of one dtype (is_i16: int16 Q2.14, else
+// float32); out: contiguous (C, H, W) uint8; any C, H, W >= 1.  The kernel
+// at u = 1, with v as U and as O: it never reads O there, and the 16-byte
+// staging test then depends on v alone.
+extern "C" int vkr_cas_woven(const void* v, void* out, int C, int H, int W,
+                             int is_i16, float sharpen, void* stream) {
+  if (C <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  return launch_dtype(v, v, out, C, H, W, 1, is_i16, sharpen, stream);
 }

@@ -8,9 +8,12 @@
 // and arithmetic; this file does the same for the two data-movement designs
 // of the port's woven CAS kernels, one entry point each:
 //
-//   vkr_copy_quantize_tile  (K10a) cas_woven.cu's (K3's) grid, block and
-//                           shared tile, the tile centre quantized where K3
-//                           evaluates the CAS; it stages the raw values
+//   vkr_copy_quantize_tile  (K10a) the grid, block and shared tile of K3's
+//                           first design (a 32 x 16 float tile, retired
+//                           when K3 moved onto cas_rows.cu's kernel), the
+//                           tile centre quantized where that K3 evaluated
+//                           the CAS; it stages the raw values.  It stays
+//                           as the probe of that data movement.
 //   vkr_copy_quantize_mono  (K10b) cas_mono.cu's (K7's) persistent cp.async
 //                           band pipeline (band_pipeline.cuh), each lane's
 //                           centre float4 quantized where K7 evaluates the
@@ -25,16 +28,16 @@
 // Bound on this card.  One multiply, two clamps and a convert per pixel
 // against 4 bytes read and 1 written: device memory bounds it.  At (3,
 // 2048, 4096) it reads 100.7 MB and writes 25.2 MB: ~37.6 us at the 3.35
-// TB/s peak.  Both forms move what their CAS kernel moves, halo included
-// (K10a ~1.2 reads of each input element, K10b (R+2)/R row reads), so the
-// gap between a CAS kernel's time and its form's time is the CAS
-// arithmetic.
+// TB/s peak.  Both forms move what their CAS kernel moves (K10a: K3's
+// first design), halo included (K10a ~1.2 reads of each input element,
+// K10b (R+2)/R row reads), so the gap between that CAS kernel's time and
+// its form's time is the CAS arithmetic.
 #include "band_pipeline.cuh"
 #include "cas_common.cuh"
 
 namespace {
 
-// K3's tile (cas_woven.cu): 32 x 8 threads, 2 rows each, an 18 x 34 tile.
+// K3's first tile: 32 x 8 threads, 2 rows each, an 18 x 34 tile.
 constexpr int kTX = 32;
 constexpr int kTY = 8;
 constexpr int kRows = 2;

@@ -2,9 +2,11 @@
 
 Counterparts of vkresample_tpu/ops/cas_pallas.py:
 
-  K1 cas_parity4_planes_u2  quad-parity CAS (u=2 quad route)   csrc/cas_quad.cu
+  K1 cas_parity4_planes_u2  quad-parity CAS (u=2 quad route)   csrc/cas_grid.cu
+                                                               (K4's U=2 instance)
   K2 cas_parity_planes_u2   rows-parity CAS (u=2 rows route)   csrc/cas_parity.cu
-  K3 cas_quantize           woven CAS (cas_quantize_pallas)    csrc/cas_woven.cu
+  K3 cas_quantize           woven CAS (cas_quantize_pallas)    csrc/cas_rows.cu
+                                                               (K5's kernel at u=1)
   K4 cas_parity_grid_planes grid-parity CAS (u x u planes)     csrc/cas_grid.cu
   K5 cas_quantize_rows_u    fused row weave + woven CAS        csrc/cas_rows.cu
                             (integer u >= 3 rows route)
@@ -30,7 +32,8 @@ kernels K8 and K9 are in ops/ycas_cuda.py.
 
 Each wrapper runs its kernel on a CUDA tensor (on the current stream; a
 launch error raises) and its plain version on a CPU tensor, and counts its
-kernel launches in ``.launches``.
+kernel launches in ``.launches``.  K1 and K3 also record in ``.staging``
+the staging form (``staging_form``) of their last launch.
 """
 from __future__ import annotations
 
@@ -78,6 +81,15 @@ def _launch(entry: str, device, *args) -> None:
         rc = getattr(lib, entry)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError_t {rc}")
+
+
+def staging_form(row_bytes: int, ptrs) -> str:
+    """How the kernels of csrc/cas_grid.cu and csrc/cas_rows.cu (K1, K3, K4,
+    K5) copy their inputs into shared memory: "16-byte" (cp.async chunks)
+    where a row of row_bytes is a whole number of 16-byte chunks and every
+    input address in ptrs is on a 16-byte boundary, else "per element"."""
+    aligned = row_bytes % 16 == 0 and all(p % 16 == 0 for p in ptrs)
+    return "16-byte" if aligned else "per element"
 
 
 def _blend_u8(c, nsum, minlen, maxlen, sharpen: float, divide: bool = False) -> torch.Tensor:
@@ -140,8 +152,9 @@ def cas_quantize_reference(v: torch.Tensor, sharpen: float) -> torch.Tensor:
 
 def cas_quantize(v: torch.Tensor, sharpen: float) -> torch.Tensor:
     """Woven CAS + quantize: (..., H, W) int16 Q2.14 or float32 -> uint8
-    of the same shape.  CUDA tensors go through csrc/cas_woven.cu, CPU
-    tensors take the plain version."""
+    of the same shape.  CUDA tensors go through csrc/cas_rows.cu's kernel
+    at u = 1 (identical on every pixel to the plain version), CPU tensors
+    take the plain version."""
     _check("woven CAS", (v,))
     if v.device.type == "cpu":
         return cas_quantize_reference(v, sharpen)
@@ -149,13 +162,16 @@ def cas_quantize(v: torch.Tensor, sharpen: float) -> torch.Tensor:
     out = torch.empty(v.shape, dtype=torch.uint8, device=v.device)
     if v.numel() == 0:
         return out
-    _launch("vkr_cas_woven", v.device, v.data_ptr(), out.data_ptr(),
+    ptr = v.data_ptr()
+    _launch("vkr_cas_woven", v.device, ptr, out.data_ptr(),
             v.numel() // (H * W), H, W, int(v.dtype == torch.int16), float(sharpen))
     cas_quantize.launches += 1
+    cas_quantize.staging = staging_form(W * v.element_size(), (ptr,))
     return out
 
 
 cas_quantize.launches = 0
+cas_quantize.staging = None
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +237,8 @@ def cas_parity4_planes_u2_reference(P00, P01, P10, P11, sharpen: float):
 def cas_parity4_planes_u2(P00, P01, P10, P11, sharpen: float):
     """u=2 quad-parity fused CAS: four pre-CAS planes (..., h, Wh), int16
     Q2.14 or float32, to four uint8 planes of the same shape.  CUDA tensors
-    go through csrc/cas_quad.cu, CPU tensors take the plain version."""
+    go through csrc/cas_grid.cu's U = 2 instance (identical on every pixel
+    to the plain version), CPU tensors take the plain version."""
     planes = (P00, P01, P10, P11)
     _check("quad CAS", planes)
     if P00.device.type == "cpu":
@@ -231,15 +248,17 @@ def cas_parity4_planes_u2(P00, P01, P10, P11, sharpen: float):
                  for _ in range(4))
     if P00.numel() == 0:
         return outs
-    _launch("vkr_cas_quad_u2", P00.device,
-            *(p.data_ptr() for p in planes), *(o.data_ptr() for o in outs),
+    ptrs = [p.data_ptr() for p in planes]
+    _launch("vkr_cas_quad_u2", P00.device, *ptrs, *(o.data_ptr() for o in outs),
             P00.numel() // (h * Wh), h, Wh, int(P00.dtype == torch.int16),
             float(sharpen))
     cas_parity4_planes_u2.launches += 1
+    cas_parity4_planes_u2.staging = staging_form(Wh * P00.element_size(), ptrs)
     return outs
 
 
 cas_parity4_planes_u2.launches = 0
+cas_parity4_planes_u2.staging = None
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ quantize, so that timing the two side by side splits the CAS's cost into
 data movement and arithmetic.  csrc/copy_quantize.cu has one form for each
 data-movement design of the port's woven CAS kernels:
 
-  K10a copy_quantize_tile  K3's shared tile (csrc/cas_woven.cu)
+  K10a copy_quantize_tile  the shared tile of K3's first design (retired
+                           when K3 moved onto csrc/cas_rows.cu's kernel;
+                           kept as the probe of that data movement)
   K10b copy_quantize_mono  K7's persistent cp.async band pipeline
                            (csrc/cas_mono.cu, csrc/band_pipeline.cuh)
 
