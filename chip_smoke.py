@@ -21,7 +21,12 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
               pixel to its plain version; K3 (K5's kernel at u = 1) at its
               route shape (3, 2160, 3840) and at K5's edge set at u = 1,
               a misaligned image among them, identical on every pixel to
-              its plain version; K5 at its route shapes (u = 3: U
+              its plain version; K2 (K5's kernel at u = 2 with a parity
+              store) at its route shapes, the rows route's 2 x (3, 1080,
+              2880) and the woven flagship's 2 x (3, 1024, 4096), and at
+              K5's edge set at u = 2, misaligned U and O among them,
+              identical on every pixel to its plain version; K5 at its
+              route shapes (u = 3: U
               (3, 720, 3840) + O (3, 1440, 3840); u = 4: U (3, 540, 3840) +
               O (3, 1620, 3840)) and at u = 2..8 and 11 with u*h and W off
               its band and strip edges, W % 4 != 0, single rows or columns
@@ -33,10 +38,13 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
               (3, 2160, 3840) and (2, 37, 201) at bh 1, 7, 64 (K6) and 1,
               32, 128 (K7): K7 identical to its plain version and to K3
               on every pixel, K6 within 1 LSB of K3; the copy-quantize
-              probes K10a (K3's tile) and K10b (K7's band pipeline; f32
-              only) at (3, 2048, 4096), (3, 2160, 3840) and (2, 37, 201),
-              K10b at bh 128, 64, 32 and 1, identical on every pixel to
-              their plain version
+              probes K10a (the tile of K3's first design), K10b (K7's
+              band pipeline) and K10c (the copy-only instance of
+              cas_rows.cu's kernel, K5's, K3's and K2's data movement),
+              f32 only, at (3, 2048, 4096), (3, 2160, 3840) and (2, 37,
+              201), K10b at bh 128, 64, 32 and 1, K10c also at odd and
+              misaligned images, identical on every pixel to their plain
+              version
   4. routes   each route through the entry point a user calls
               (build_upscale(plan, planes_out=True) as the CLI does, or
               upscale()) against the fp64 oracle (<= 1 LSB); every
@@ -58,7 +66,7 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
                 c2c chain 2.5x 1280x720 -> 3200x1800, -p 0           K3
                 xla c2c  -engine xla 1920x1080 -> 3840x2160, -p 0    K3
               and prints which staging form (16-byte or per element) each
-              route's K1 or K3 call took; then the fused-y runs, the rows
+              route's K1, K2 or K3 call took; then the fused-y runs, the rows
               route's x pass
               (dense.r2c_x_only) followed by a fused y-GEMM + CAS kernel,
               against the oracle (<= 1 LSB) and the rows route's output
@@ -78,7 +86,7 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
               copy-quantize probe, identical on every pixel to the plain
               quantize_u8 of the same woven image on the card, same
               counter rule:
-                cas split K10a, K10b bh=64/128                        K10a/K10b
+                cas split K10a, K10b bh=64/128, K10c                  K10a/K10b/K10c
               and the TF32 check: under the caller's
               torch.set_float32_matmul_precision("high") the cached quad -p 0
               function stays <= 1 LSB from the oracle (its GEMMs run in
@@ -91,13 +99,14 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
   6. times    ms/frame of every route, fused-y, A/B and CAS-split run
               (-n 20, CUDA events), each kernel against its plain version
               (50 wrapper calls, CUDA events; K4 at its three route shapes
-              and K5 at its two, and beside them, printed only, the device
-              time alone of K1, K3, K4 and K5: 50 calls replayed from one
-              CUDA graph, since K4's wrapper takes about as long on the
-              host as its kernel on the device), the unfused forms K5, K8
+              and K2 and K5 at their two, and beside them, printed only,
+              the device time alone of K1, K2, K3, K4 and K5: 50 calls
+              replayed from one CUDA graph, since K4's wrapper takes about
+              as long on the host as its kernel on the device), the
+              unfused forms K5, K8
               and K9 replace (weave_rows + K3; torch.matmul y GEMM, Q2.14
               store in -p 2, + K2, woven for K9),
-              K3 beside K6 and K7 at their shape, K10a beside K3 and K10b
+              K3 beside K6 and K7 at their shape, K10c beside K3 and K10b
               beside K7 (bh 128 and 64) at (3, 2048, 4096), and the device
               grid weave
 
@@ -178,6 +187,7 @@ CAS_SPLIT = {
     "cas split K10a": ("K10a", None),
     "cas split K10b bh=64": ("K10b", 64),
     "cas split K10b bh=128": ("K10b", 128),
+    "cas split K10c": ("K10c", None),
 }
 
 
@@ -351,14 +361,17 @@ def cas_ab_fn(plan, dev, kid: str, bh):
 
 def cas_split_fn(plan, dev, kid: str, bh):
     """The CAS-split frame of a u=2 plan on `dev` (scripts/cas_split.py):
-    woven_fn's image, then the copy-quantize probe K10a (K3's tile) or K10b
-    (K7's band pipeline, bh rows per band): the (C, 2h, 2w) uint8 image
+    woven_fn's image, then the copy-quantize probe K10a (the tile of K3's
+    first design), K10b (K7's band pipeline, bh rows per band) or K10c
+    (cas_rows.cu's data movement, K3's now): the (C, 2h, 2w) uint8 image
     quantize_u8 gives."""
     from vkresample_tpu_torch.ops import quantize_cuda
 
     woven = woven_fn(plan, dev)
     if kid == "K10a":
         return lambda img: quantize_cuda.copy_quantize_tile(woven(img))
+    if kid == "K10c":
+        return lambda img: quantize_cuda.copy_quantize_rows(woven(img))
     return lambda img: quantize_cuda.copy_quantize_mono(woven(img), bh)
 
 
@@ -407,12 +420,13 @@ def main() -> int:
         return buf[1:].view(p.shape)
 
     def tagged(case):
-        """(shape, misaligned?) of a K1 or K3 case: a shape, or (shape,
-        "misaligned") for inputs 2 or 4 bytes past a 16-byte boundary."""
+        """(shape, misaligned?) of a K1, K2, K3 or K10c case: a shape, or
+        (shape, "misaligned") for inputs 2 or 4 bytes past a 16-byte
+        boundary."""
         return (case[0], True) if case[-1] == "misaligned" else (case, False)
 
     def image_args(case, dt, n):
-        """n seeded planes of a K1 (n = 4) or K3 (n = 1) case."""
+        """n seeded planes of a K1 (n = 4), K2 (n = 2) or K3 (n = 1) case."""
         shape, mis = tagged(case)
         ps = planes(shape, n, dt)
         return [misaligned(p) for p in ps] if mis else ps
@@ -494,11 +508,21 @@ def main() -> int:
         "K2": dict(
             name="cas_parity_planes_u2", fn=cas_cuda.cas_parity_planes_u2,
             plain=cas_cuda.cas_parity_planes_u2_reference,
-            source="vkresample_tpu_torch/csrc/cas_parity.cu",
+            source="vkresample_tpu_torch/csrc/cas_rows.cu",
             replaces="vkresample_tpu/ops/cas_pallas.py:777",
-            cases=[(C, 1080, 2880), (2, 37, 200)],
-            args=lambda case, dt: planes(case, 2, dt),
+            # the route shapes (the rows route 1440x1080 -> 2880x2160, the
+            # woven flagship 2048x1024 -> 4096x2048), then K5's edge set at
+            # u = 2: h and 2h off the 64-row band and W off the 128-column
+            # strip, W % 4 != 0, W % 8 != 0, h = 1, W = 1, and misaligned U
+            # and O
+            cases=[(C, 1080, 2880), (C, 1024, 4096), (2, 37, 200), (2, 32, 136),
+                   (2, 65, 131), (2, 21, 202), (2, 13, 132), (1, 1, 70), (1, 1, 129),
+                   (2, 40, 1), (1, 1, 1)]
+            + [((2, 37, 200), "misaligned"), ((C, 1080, 2880), "misaligned")],
+            args=lambda case, dt: image_args(case, dt, 2),
             bound=lambda a: cas_bound(a[0].shape, 2, a[0].element_size()),
+            exact=True,
+            timed=2,
         ),
         "K3": dict(
             name="cas_quantize", fn=cas_cuda.cas_quantize,
@@ -618,7 +642,6 @@ def main() -> int:
             args=lambda case, dt: planes(case, 1, dt),
             bound=lambda a: quant_bound(a[0]),
             exact=True,
-            vs=("K3", lambda v, s: cas_cuda.cas_quantize(v, s), None),
         ),
         "K10b": dict(
             name="copy_quantize_mono", wrapper=quantize_cuda.copy_quantize_mono,
@@ -634,6 +657,22 @@ def main() -> int:
             exact=True,
             vs=("K7 at the same bh", lambda v, bh, s: cas_cuda.cas_quantize_mono(v, s, bh), None),
             timed=2,
+        ),
+        "K10c": dict(
+            name="copy_quantize_rows", wrapper=quantize_cuda.copy_quantize_rows,
+            fn=lambda v, s: quantize_cuda.copy_quantize_rows(v),
+            plain=lambda v, s: quantize_cuda.copy_quantize_reference(v),
+            source="vkresample_tpu_torch/csrc/cas_rows.cu",
+            replaces="scripts/cas_split.py:57",
+            # the CAS-split frame's woven image, K3's route shape, then off
+            # the band and strip edges, W % 4 != 0, W = 1, and misaligned
+            cases=[(C, 2048, 4096), (C, 2160, 3840), (2, 37, 201), (2, 65, 131), (2, 40, 1)]
+            + [((2, 37, 200), "misaligned")],
+            dtypes=(torch.float32,),
+            args=lambda case, dt: image_args(case, dt, 1),
+            bound=lambda a: quant_bound(a[0]),
+            exact=True,
+            vs=("K3", lambda v, s: cas_cuda.cas_quantize(v, s), None),
         ),
     }
 
@@ -723,7 +762,7 @@ def main() -> int:
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
         counts = launches_of(route, runs)
-        for kid in sorted(runs & {"K1", "K3"}):
+        for kid in sorted(runs & {"K1", "K2", "K3"}):
             print(f"[4 routes] {route}: {kid} staging form "
                   f"{kernels[kid]['fn'].staging}")
         got = route_out[route] = woven_hwc(out, fmt, plan)
@@ -896,8 +935,8 @@ def main() -> int:
                 k.setdefault(key, v)  # the int16 reading goes into the JSON line
     # the eager times above include each wrapper's host work, which for K4
     # takes about as long as its kernel: the device alone of the redesigned
-    # kernels K1, K3, K4 and K5, printed only
-    for kid in ("K1", "K3", "K4", "K5"):
+    # kernels K1, K2, K3, K4 and K5, printed only
+    for kid in ("K1", "K2", "K3", "K4", "K5"):
         k = kernels[kid]
         for case, dt in ((case, dt) for case in k["cases"][:k.get("timed", 1)]
                          for dt in (torch.int16, torch.float32)):

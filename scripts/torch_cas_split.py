@@ -9,11 +9,14 @@ random uint8 frame (numpy seed 0), dense.r2c_rows without a storage codec
 4096); then one kernel.  Each CAS kernel is paired with its copy-quantize
 probe, which moves the same data and only quantizes:
 
-  K3 (csrc/cas_rows.cu at u=1)       with K10a (the tile staging of K3's
-                                     first design, which K3 no longer
-                                     runs: the gap is now not K3's
-                                     arithmetic alone)
+  K3 (csrc/cas_rows.cu at u=1)       with K10c (the copy-only instance of
+                                     the same kernel: its staging, its
+                                     register walk and its stores)
   K7 (csrc/cas_mono.cu) at bh 64, 128 with K10b (K7's band pipeline), same bh
+
+K3 runs the kernel of K5 and K2, so its split is theirs too.  K10a, the
+tile of K3's first design, moves what no CAS kernel moves any more; it is
+checked and timed by chip_smoke.py only.
 
 For each pair, in one process and in the script's alternating order (copy,
 CAS, copy again, CAS again), it prints with the card's name and power
@@ -37,7 +40,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # pair -> (the copy-quantize probe, the CAS kernel), each (kernel id, rows per band)
 PAIRS = {
-    "K3 tile": (("K10a", None), ("K3", None)),
+    "K3 rows": (("K10c", None), ("K3", None)),
     "K7 band bh=64": (("K10b", 64), ("K7", 64)),
     "K7 band bh=128": (("K10b", 128), ("K7", 128)),
 }
@@ -65,12 +68,12 @@ def main() -> int:
     x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (h, w, 3), np.uint8)).to(dev)
     v = woven_fn(plan, dev)(x)
     kernel = {
-        "K10a": lambda bh: quantize_cuda.copy_quantize_tile(v),
+        "K10c": lambda bh: quantize_cuda.copy_quantize_rows(v),
         "K3": lambda bh: cas_cuda.cas_quantize(v, plan.sharpen),
         "K10b": lambda bh: quantize_cuda.copy_quantize_mono(v, bh),
         "K7": lambda bh: cas_cuda.cas_quantize_mono(v, plan.sharpen, bh),
     }
-    make_frame = {"K10a": cas_split_fn, "K10b": cas_split_fn, "K3": cas_ab_fn, "K7": cas_ab_fn}
+    make_frame = {"K10c": cas_split_fn, "K10b": cas_split_fn, "K3": cas_ab_fn, "K7": cas_ab_fn}
     print(f"woven image {tuple(v.shape)} {v.dtype}; bound of every kernel "
           f"{v.numel() * 5 / 3.35e12 * 1e3:.4f} ms ({v.numel() * 5 / 1e6:.1f} MB over 3.35 TB/s)")
     for label, pair in PAIRS.items():

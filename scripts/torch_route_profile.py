@@ -6,12 +6,13 @@
 
 The routes, the fused-y runs, the woven-CAS A/B runs ("cas ab K3", "cas ab
 K6 bh=64" ..., "cas ab K7 bh=128") and the CAS-split runs ("cas split
-K10a", "cas split K10b bh=64", "cas split K10b bh=128") are chip_smoke.py's
-ROUTES, FUSED, CAS_AB and CAS_SPLIT (full frame sizes, 3 channels, a seeded
-random frame already on the device).  Every frame runs its GEMMs inside
-pipeline/upscale.py::fp32_matmul (the built pipelines and chip_smoke's
-frame functions pin it per call), so the CUDA-graph capture records fp32
-GEMMs too.  For each it prints, with the card's name and power limit:
+K10a", "cas split K10b bh=64", "cas split K10b bh=128", "cas split K10c")
+are chip_smoke.py's ROUTES, FUSED, CAS_AB and CAS_SPLIT (full frame sizes,
+3 channels, a seeded random frame already on the device).  Every frame
+runs its GEMMs inside pipeline/upscale.py::fp32_matmul (the built
+pipelines and chip_smoke's frame functions pin it per call), so the
+CUDA-graph capture records fp32 GEMMs too.  For each it prints, with the
+card's name and power limit:
 
   ms/frame      -n 20 through the entry point, CUDA events (as chip_smoke)
   graph         the same frame captured once in a CUDA graph and replayed

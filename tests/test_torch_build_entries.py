@@ -61,7 +61,13 @@ def test_entry_defined_once_with_its_ctypes_signature(name):
 
 
 def test_retired_quad_and_woven_entries_live_in_the_redesigned_kernels():
-    """K1 runs K4's U = 2 instance and K3 K5's kernel at u = 1: their entry
-    points are defined beside those kernels."""
+    """K1 runs K4's U = 2 instance, K3 K5's kernel at u = 1 and K2 the same
+    kernel at u = 2: their entry points are defined beside those kernels,
+    and the first-design sources are gone.  K10c, the copy probe of that
+    kernel's data movement, is its copy-only instance."""
     assert DEFINITIONS["vkr_cas_quad_u2"][0][0] == "cas_grid.cu"
     assert DEFINITIONS["vkr_cas_woven"][0][0] == "cas_rows.cu"
+    assert DEFINITIONS["vkr_cas_parity_u2"][0][0] == "cas_rows.cu"
+    assert DEFINITIONS["vkr_copy_quantize_rows"][0][0] == "cas_rows.cu"
+    for retired in ("cas_quad.cu", "cas_woven.cu", "cas_parity.cu"):
+        assert not os.path.exists(os.path.join(_build.CSRC_DIR, retired)), retired

@@ -6,8 +6,10 @@ Tolerances: against the JAX kernels, <= 1 LSB and >= 99.9 % of pixels
 identical (both evaluate the same rsqrt blend in float32 with different
 operation fusion, so truncation to uint8 can flip on values within an ulp
 of an integer; the K1 bar of test_torch_cas.py).  Against the fp64 oracle
-(sqrt/divide form in f64), <= 1 LSB.  On the card K3 (csrc/cas_rows.cu's
-kernel at u = 1) equals its plain version on every pixel."""
+(sqrt/divide form in f64), <= 1 LSB.  K2's plain version equals K5's at u
+= 2, split into even and odd rows, on every pixel.  On the card K3 and K2
+(csrc/cas_rows.cu's kernel at u = 1 and u = 2) equal their plain versions
+on every pixel."""
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from vkresample_tpu_torch.ops.cas_cuda import (
     cas_parity_planes_u2_reference,
     cas_quantize,
     cas_quantize_reference,
+    cas_quantize_rows_u_reference,
 )
 from vkresample_tpu_torch.oracle import numpy_ref as toracle
 
@@ -84,6 +87,30 @@ def test_parity_plain_matches_jax_kernel(shape, dtype):
     got = cas_parity_planes_u2_reference(*tUO, 0.2)
     assert all(g.dtype == torch.uint8 and g.shape == shape for g in got)
     dmax, same = _agree(np.stack([g.numpy() for g in got]), np.stack(want))
+    assert dmax <= 1 and same >= MIN_IDENTICAL, (dmax, same)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("shape", [(2, 32, 128), (2, 37, 200), (1, 17, 3), (2, 9, 1), (1, 1, 1),
+                                   (2, 1, 131)])
+def test_rows_plain_at_u2_is_the_parity_plain_and_matches_jax_parity_kernel(shape, dtype):
+    """K5's plain version at u = 2, split into its even and odd rows (the
+    yardstick of csrc/cas_rows.cu's kernel at u = 2, which runs K2 on the
+    card) equals K2's plain version on every pixel, and is within K2's bar
+    of JAX cas_parity_planes_u2 (interpret), at a 128-aligned width and odd
+    ones: h and W off any tile, W % 4 != 0, one column, one row, one
+    pixel."""
+    from vkresample_tpu.ops.cas_pallas import cas_parity_planes_u2 as jk2
+
+    arrays = [_pre_cas(shape, seed=s + 5 * sum(shape)) for s in (1, 2)]
+    jUO, (U, O) = _both(arrays, dtype)
+    woven = cas_quantize_rows_u_reference(U, O, 2, 0.2)
+    got = (woven[..., 0::2, :], woven[..., 1::2, :])
+    assert all(g.dtype == torch.uint8 and g.shape == shape for g in got)
+    for g, q in zip(got, cas_parity_planes_u2_reference(U, O, 0.2)):
+        assert torch.equal(g, q)
+    dmax, same = _agree(np.stack([g.numpy() for g in got]),
+                        np.stack(jk2(*jUO, 0.2, interpret=True)))
     assert dmax <= 1 and same >= MIN_IDENTICAL, (dmax, same)
 
 
@@ -203,21 +230,51 @@ def test_cuda_woven_kernel_edge_shapes_and_misaligned_image(shape, offset, dtype
     _cuda_woven_exact(_cuda_woven(shape, dtype, seed=3 + sum(shape), offset=offset))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
-@pytest.mark.parametrize("shape", [(3, 1080, 2880), (2, 37, 200), (1, 1, 1)])
-def test_cuda_parity_kernel_matches_plain_version(shape, dtype):
-    """On the card: K2 against its plain version."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
-    g = torch.Generator(device="cuda").manual_seed(3)
-    U, O = (torch.rand(shape, generator=g, device="cuda") * 1.3 - 0.1 for _ in range(2))
-    if dtype == torch.int16:
-        U, O = cas.to_i16_storage(U), cas.to_i16_storage(O)
+def _cuda_parity_exact(U, O):
     before = cas_parity_planes_u2.launches
     got = cas_parity_planes_u2(U, O, 0.2)
     torch.cuda.synchronize()
     assert cas_parity_planes_u2.launches == before + 1
-    want = cas_parity_planes_u2_reference(U, O, 0.2)
-    dmax, same = _agree(torch.stack(got).cpu().numpy(), torch.stack(want).cpu().numpy())
-    assert dmax <= 1 and same >= MIN_IDENTICAL
+    for g, q in zip(got, cas_parity_planes_u2_reference(U, O, 0.2)):
+        assert torch.equal(g, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("shape", [(3, 1080, 2880), (2, 37, 200), (1, 1, 1)])
+def test_cuda_parity_kernel_matches_plain_version(shape, dtype):
+    """On the card: K2 (csrc/cas_rows.cu's kernel at u = 2) identical to its
+    plain version on every pixel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    _cuda_parity_exact(*(_cuda_woven(shape, dtype, seed=3 + s) for s in (0, 1)))
+
+
+# K5's edge set at u = 2: h and 2h off the 64-row band (2h = 64 exactly,
+# 74, 130, 42, 26); W off the 128-column strip; W % 4 != 0 (byte stores)
+# and W % 8 != 0 (per-element staging of int16, where W * 2 % 16 != 0); h =
+# 1; W = 1; the woven flagship's U and O; then U, O or both one element (2
+# or 4 bytes) past a 16-byte boundary at widths the 16-byte copies would
+# take, which takes the per-element staging form
+PARITY_EDGE_CASES = (
+    [((2, 37, 200), ""), ((2, 32, 136), ""), ((2, 65, 131), ""), ((2, 21, 202), ""),
+     ((2, 13, 132), ""), ((1, 1, 70), ""), ((1, 1, 129), ""), ((2, 40, 1), ""),
+     ((1, 1, 1), ""), ((3, 1024, 4096), "")]
+    + [((2, 37, 200), "U"), ((2, 21, 136), "O"), ((2, 19, 264), "UO"),
+       ((3, 1080, 2880), "UO")]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("shape,misaligned", PARITY_EDGE_CASES)
+def test_cuda_parity_kernel_edge_shapes_and_misaligned_planes(shape, misaligned, dtype):
+    """On the card: K2 identical on every pixel to its plain version off its
+    band and strip edges, at odd widths, single rows and columns, the woven
+    flagship's shape, and on misaligned U and O (the per-element staging
+    form)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    U, O = (_cuda_woven(shape, dtype, seed=5 + s + sum(shape), offset=int(p in misaligned))
+            for s, p in enumerate("UO"))
+    _cuda_parity_exact(U, O)

@@ -1,5 +1,6 @@
-"""Port copy-quantize probes (K10a copy_quantize_tile, K10b copy_quantize_mono:
-the woven CAS kernels' data movement with the CAS taken out), wrappers and
+"""Port copy-quantize probes (K10a copy_quantize_tile, K10b copy_quantize_mono,
+K10c copy_quantize_rows: the woven CAS kernels' data movement with the CAS
+taken out), wrappers and
 plain version, against the JAX script's Pallas kernel
 scripts/cas_split.py::copy_quantize (interpret mode on the CPU), the JAX
 package's quantize_u8, and on the CAS-split frame (the A/B frame's woven
@@ -23,11 +24,12 @@ from vkresample_tpu_torch.ops.quantize_cuda import (
     copy_quantize,
     copy_quantize_mono,
     copy_quantize_reference,
+    copy_quantize_rows,
     copy_quantize_tile,
 )
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
-FORMS = [("tile", 128), ("mono", 1), ("mono", 7), ("mono", 128)]
+FORMS = [("tile", 128), ("mono", 1), ("mono", 7), ("mono", 128), ("rows", 128)]
 
 
 def _pre_cas(shape, seed):
@@ -90,6 +92,7 @@ def test_plain_matches_jax_k10(shape, bh):
     np.testing.assert_array_equal(copy_quantize_reference(tv).numpy(), want)
     np.testing.assert_array_equal(copy_quantize_tile(tv).numpy(), want)
     np.testing.assert_array_equal(copy_quantize_mono(tv, bh).numpy(), want)
+    np.testing.assert_array_equal(copy_quantize_rows(tv).numpy(), want)
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1), (2, 37, 201)])
@@ -128,18 +131,18 @@ def test_clamp_branches_and_truncation():
 def test_wrappers_take_float32_only(dtype):
     v = torch.zeros((1, 8, 16), dtype=dtype)
     for fn in (copy_quantize_reference, copy_quantize_tile, copy_quantize_mono,
-               lambda t: copy_quantize(t, "mono", 32)):
+               copy_quantize_rows, lambda t: copy_quantize(t, "mono", 32)):
         with pytest.raises(TypeError, match="float32"):
             fn(v)
 
 
 def test_wrappers_reject_bad_inputs():
     nc = torch.zeros((1, 16, 8)).transpose(1, 2)
-    for fn in (copy_quantize_tile, copy_quantize_mono):
+    for fn in (copy_quantize_tile, copy_quantize_mono, copy_quantize_rows):
         with pytest.raises(ValueError, match="contiguous"):
             fn(nc)
     for bh in (0, -1, 2.5):
-        for form in ("tile", "mono"):
+        for form in ("tile", "mono", "rows"):
             with pytest.raises(ValueError, match="block_rows"):
                 copy_quantize(torch.zeros((1, 8, 16)), form, bh)
     with pytest.raises(ValueError, match="form"):
@@ -150,12 +153,32 @@ def test_wrappers_on_cpu_use_plain_version_and_count_nothing():
     """On CPU tensors every form returns the plain version (leading dims
     kept) and launches nothing; each form has its own counter."""
     v = torch.from_numpy(_pre_cas((2, 3, 10, 20), seed=19))
-    before = (copy_quantize_tile.launches, copy_quantize_mono.launches)
+    counters = (copy_quantize_tile, copy_quantize_mono, copy_quantize_rows)
+    before = [fn.launches for fn in counters]
     want = copy_quantize_reference(v)
     assert want.shape == v.shape
     for form, bh in FORMS:
         assert torch.equal(copy_quantize(v, form, bh), want)
-    assert (copy_quantize_tile.launches, copy_quantize_mono.launches) == before
+    assert [fn.launches for fn in counters] == before
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 37, 201), (2, 3, 65, 130)])
+def test_rows_wrapper_plain_path_and_argument_errors(shape):
+    """K10c on CPU tensors: the plain version (leading dims kept), no launch
+    counted; float32 only, contiguous only."""
+    v = torch.from_numpy(_pre_cas(shape, seed=29 + sum(shape)))
+    before = copy_quantize_rows.launches
+    got = copy_quantize_rows(v)
+    assert got.dtype == torch.uint8 and got.shape == shape
+    assert torch.equal(got, copy_quantize_reference(v))
+    assert torch.equal(got, copy_quantize(v, "rows"))
+    assert copy_quantize_rows.launches == before
+    with pytest.raises(TypeError, match="float32"):
+        copy_quantize_rows(v.to(torch.int16))
+    with pytest.raises(ValueError, match="contiguous"):
+        copy_quantize_rows(torch.zeros(shape[:-2] + (16, 8)).transpose(-1, -2))
+    with pytest.raises(ValueError, match="rows, cols"):
+        copy_quantize_rows(v.reshape(-1))
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +186,7 @@ def test_wrappers_on_cpu_use_plain_version_and_count_nothing():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kid,bh", [("K10a", None), ("K10b", 64), ("K10b", 5)])
+@pytest.mark.parametrize("kid,bh", [("K10a", None), ("K10b", 64), ("K10b", 5), ("K10c", None)])
 def test_cas_split_frame_is_quantize_of_the_woven_image(kid, bh):
     """chip_smoke's CAS-split frame on the CPU at a small u=2 -p 2 plan
     equals quantize_u8(weave_rows(r2c_rows(...))) on every pixel, and the
@@ -223,3 +246,27 @@ def test_cuda_copy_quantize_kernels_match_plain_version(shape):
         assert (copy_quantize_tile.launches, copy_quantize_mono.launches) == (
             before[0], before[1] + 1)
         assert torch.equal(got, want), bh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", [((2, 37, 201), 0), ((3, 256, 512), 0), ((1, 1, 1), 0),
+                                          ((2, 65, 131), 0), ((2, 40, 1), 0),
+                                          ((3, 2048, 4096), 0), ((2, 37, 200), 1),
+                                          ((3, 2048, 4096), 1)])
+def test_cuda_copy_quantize_rows_kernel_matches_plain_version(shape, offset):
+    """On the card: K10c equals the plain version on every pixel, off the
+    kernel's band and strip edges, at odd widths, single rows and columns,
+    the CAS-split frame's woven shape, and on an image one element past a
+    16-byte boundary (the per-element staging form); one launch each on its
+    own counter."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    g = torch.Generator(device="cuda").manual_seed(sum(shape) + offset)
+    buf = torch.rand(int(np.prod(shape)) + offset, generator=g, device="cuda") * 1.3 - 0.1
+    v = buf[offset:].view(shape)
+    counters = (copy_quantize_tile, copy_quantize_mono, copy_quantize_rows)
+    before = [fn.launches for fn in counters]
+    got = copy_quantize_rows(v)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == [before[0], before[1], before[2] + 1]
+    assert torch.equal(got, copy_quantize_reference(v))

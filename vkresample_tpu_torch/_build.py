@@ -51,6 +51,7 @@ ENTRY_POINTS = {
     "vkr_ycas_u2": [_PTR] * 4 + [_I32] * 5 + [_F32],        # U, T2, YT, out; C, h, W, r, is_i16
     "vkr_copy_quantize_tile": [_PTR] * 2 + [_I32] * 3,      # v, out; C, H, W
     "vkr_copy_quantize_mono": [_PTR] * 2 + [_I32] * 4,      # v, out; C, H, W, bh
+    "vkr_copy_quantize_rows": [_PTR] * 2 + [_I32] * 3,      # v, out; C, H, W
 }
 
 

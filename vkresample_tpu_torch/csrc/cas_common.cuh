@@ -1,7 +1,7 @@
 // The per-pixel FidelityFX-CAS evaluation shared by the port's CAS kernels
-// (cas_grid.cu: K4 and K1; cas_rows.cu: K5 and K3; cas_parity.cu,
-// cas_blocked.cu, cas_mono.cu, ycas.cu), and its final quantize, which
-// copy_quantize.cu runs alone.
+// (cas_grid.cu: K4 and K1; cas_rows.cu: K5, K3 and K2; cas_blocked.cu,
+// cas_mono.cu, ycas.cu), and its final quantize, which the copy-quantize
+// probes (copy_quantize.cu; cas_rows.cu's copy instance) run alone.
 //
 // With L = min(|V|, 1) (int16 Q2.14 input scaled by 1/16384 first), every
 // output pixel is the 3x3 clamp-to-edge CAS of L (VkResample.cpp:887-923):
@@ -125,8 +125,8 @@ __device__ __forceinline__ void load4(float (&d)[4], const int16_t* p) {
 }
 
 // 3x3 CAS of the woven window centred on tile[r][q] (row pitch kSW), for
-// the float tile kernels (cas_parity.cu, cas_blocked.cu); kSqrt picks
-// cas_pixel_sqrt (K6's blend) over cas_pixel.
+// the float tile kernel of cas_blocked.cu (K6), which alone uses it; kSqrt
+// picks cas_pixel_sqrt (K6's blend) over cas_pixel.
 template <int kSW, bool kSqrt = false>
 __device__ __forceinline__ uint8_t cas_at(float (*tile)[kSW], int r, int q,
                                           float sharpen) {

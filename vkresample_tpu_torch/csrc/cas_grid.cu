@@ -51,6 +51,11 @@
 //   output plane pointers are compile-time indices of the argument struct
 //   (a __grid_constant__ parameter, so the staging loop's runtime index
 //   into the input pointers is a constant-bank load, not a local copy).
+//   The struct holds U*U pointers each way: 64 bytes at U = 2, where a
+//   struct sized for U = 8 put 1 KB on every launch.  The bare launch of
+//   K1 (the ctypes call alone) reads 0.005-0.009 ms a call either way, as
+//   the first K1 kernel's eight pointer arguments did
+//   (scripts/torch_cas_kernels.py, PERF.md §6).
 // - A block takes the work item (channel, band of R plane rows, strip of
 //   kStrip = 64 plane columns) and stages, for each of the U*U planes, the
 //   (R+2) x (64+2) window of that plane (one halo row and column on each
@@ -118,9 +123,13 @@ constexpr int kStrip = 64;   // plane columns per work item
 constexpr int kLane = 4;     // adjacent plane columns per thread
 constexpr int kGroups = kStrip / kLane;  // threads along a plane row
 
+// The U*U input and output plane pointers of a launch, passed by value as
+// the kernel's __grid_constant__ argument: 16 U^2 bytes (64 at U = 2, 1 KB
+// only at U = 8).
+template <int U>
 struct GridPlanes {
-  const void* in[kMaxU * kMaxU];
-  uint8_t* out[kMaxU * kMaxU];
+  const void* in[U * U];
+  uint8_t* out[U * U];
 };
 
 // Rows per band (one plane row per thread) and threads per block, per
@@ -155,7 +164,7 @@ constexpr size_t window_bytes() {
 // into win: kVec, 16-byte copies of the interior and per-element halo
 // columns; else per-element copies of every column.
 template <int U, typename T, bool kVec>
-__device__ __forceinline__ void stage_copies(T* win, const GridPlanes& planes, size_t cbase,
+__device__ __forceinline__ void stage_copies(T* win, const GridPlanes<U>& planes, size_t cbase,
                                              int t0, int s0, int h, int W) {
   using G = GridShape<U>;
   using Win = Window<T>;
@@ -184,7 +193,7 @@ __device__ __forceinline__ void stage_copies(T* win, const GridPlanes& planes, s
 // block, so one kernel instance per U and T holds both forms), then wait
 // for every thread's copies.
 template <int U, typename T>
-__device__ __forceinline__ void stage(T* win, const GridPlanes& planes, size_t cbase, int t0,
+__device__ __forceinline__ void stage(T* win, const GridPlanes<U>& planes, size_t cbase, int t0,
                                       int s0, int h, int W, int vec) {
   if (vec) {
     stage_copies<U, T, true>(win, planes, cbase, t0, s0, h, W);
@@ -232,7 +241,7 @@ __device__ __forceinline__ void load_row(float (&v)[4 * U + 2], const T* row, in
 
 template <int U, typename T>
 __global__ void __launch_bounds__(GridShape<U>::kThreads, (kMinBlocks<U, T>))
-cas_grid_kernel(const __grid_constant__ GridPlanes planes, int h, int W, int vec, int store32,
+cas_grid_kernel(const __grid_constant__ GridPlanes<U> planes, int h, int W, int vec, int store32,
                 float sharpen) {
   using G = GridShape<U>;
   using Win = Window<T>;
@@ -301,7 +310,7 @@ cas_grid_kernel(const __grid_constant__ GridPlanes planes, int h, int W, int vec
 }
 
 template <int U, typename T>
-int launch(const GridPlanes& planes, int C, int h, int W, float sharpen, cudaStream_t st) {
+int launch(const GridPlanes<U>& planes, int C, int h, int W, float sharpen, cudaStream_t st) {
   using G = GridShape<U>;
   bool vec = W % Window<T>::kVec == 0, store32 = W % kLane == 0;
   for (int i = 0; i < U * U; ++i) {
@@ -310,7 +319,7 @@ int launch(const GridPlanes& planes, int C, int h, int W, float sharpen, cudaStr
   }
   const dim3 grid((W + kStrip - 1) / kStrip, (h + G::kRows - 1) / G::kRows, C);
   if (grid.y > 65535u || grid.z > 65535u) return (int)cudaErrorInvalidValue;
-  void (*kern)(const GridPlanes, int, int, int, int, float) = cas_grid_kernel<U, T>;
+  void (*kern)(const GridPlanes<U>, int, int, int, int, float) = cas_grid_kernel<U, T>;
   constexpr size_t smem = window_bytes<U, T>();
   if (smem > 48 * 1024) {
     const cudaError_t rc =
@@ -321,9 +330,16 @@ int launch(const GridPlanes& planes, int C, int h, int W, float sharpen, cudaStr
   return (int)cudaGetLastError();
 }
 
+// The launch of either entry: the U*U plane pointers copied into the
+// launch's GridPlanes<U>, of one dtype (is_i16: int16 Q2.14, else float32).
 template <int U>
-int launch_u(const GridPlanes& planes, int C, int h, int W, int is_i16, float sharpen,
-             cudaStream_t st) {
+int launch_u(const void* const* in, void* const* out, int C, int h, int W, int is_i16,
+             float sharpen, cudaStream_t st) {
+  GridPlanes<U> planes;
+  for (int i = 0; i < U * U; ++i) {
+    planes.in[i] = in[i];
+    planes.out[i] = static_cast<uint8_t*>(out[i]);
+  }
   return is_i16 ? launch<U, int16_t>(planes, C, h, W, sharpen, st)
                 : launch<U, float>(planes, C, h, W, sharpen, st);
 }
@@ -342,21 +358,16 @@ extern "C" int vkr_cas_grid(const void* const* in, void* const* out, int u,
     return (int)cudaErrorInvalidValue;
   if ((long long)u * h > 0x7fffffffLL || (long long)u * W > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  GridPlanes planes = {};
-  for (int i = 0; i < u * u; ++i) {
-    planes.in[i] = in[i];
-    planes.out[i] = static_cast<uint8_t*>(out[i]);
-  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (u) {
-    case 1: return launch_u<1>(planes, C, h, W, is_i16, sharpen, st);
-    case 2: return launch_u<2>(planes, C, h, W, is_i16, sharpen, st);
-    case 3: return launch_u<3>(planes, C, h, W, is_i16, sharpen, st);
-    case 4: return launch_u<4>(planes, C, h, W, is_i16, sharpen, st);
-    case 5: return launch_u<5>(planes, C, h, W, is_i16, sharpen, st);
-    case 6: return launch_u<6>(planes, C, h, W, is_i16, sharpen, st);
-    case 7: return launch_u<7>(planes, C, h, W, is_i16, sharpen, st);
-    default: return launch_u<8>(planes, C, h, W, is_i16, sharpen, st);
+    case 1: return launch_u<1>(in, out, C, h, W, is_i16, sharpen, st);
+    case 2: return launch_u<2>(in, out, C, h, W, is_i16, sharpen, st);
+    case 3: return launch_u<3>(in, out, C, h, W, is_i16, sharpen, st);
+    case 4: return launch_u<4>(in, out, C, h, W, is_i16, sharpen, st);
+    case 5: return launch_u<5>(in, out, C, h, W, is_i16, sharpen, st);
+    case 6: return launch_u<6>(in, out, C, h, W, is_i16, sharpen, st);
+    case 7: return launch_u<7>(in, out, C, h, W, is_i16, sharpen, st);
+    default: return launch_u<8>(in, out, C, h, W, is_i16, sharpen, st);
   }
 }
 
@@ -373,9 +384,7 @@ extern "C" int vkr_cas_quad_u2(const void* p00, const void* p01,
                                float sharpen, void* stream) {
   if (C <= 0 || h <= 0 || Wh <= 0) return (int)cudaErrorInvalidValue;
   if (2LL * h > 0x7fffffffLL || 2LL * Wh > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const GridPlanes planes = {
-      {p00, p01, p10, p11},
-      {static_cast<uint8_t*>(o00), static_cast<uint8_t*>(o01), static_cast<uint8_t*>(o10),
-       static_cast<uint8_t*>(o11)}};
-  return launch_u<2>(planes, C, h, Wh, is_i16, sharpen, static_cast<cudaStream_t>(stream));
+  const void* const in[4] = {p00, p01, p10, p11};
+  void* const out[4] = {o00, o01, o10, o11};
+  return launch_u<2>(in, out, C, h, Wh, is_i16, sharpen, static_cast<cudaStream_t>(stream));
 }

@@ -19,6 +19,10 @@
 //                           centre float4 quantized where K7 evaluates the
 //                           CAS
 //
+// The third form, K10c (vkr_copy_quantize_rows), is the copy-only instance
+// of cas_rows.cu's kernel, the data movement of K5, K3 and K2, and lives
+// there.
+//
 // What it computes.  A float32 image v (C, H, W) goes to the uint8 image
 // (C, H, W): out = (int)clamp(v * 255, 0, 255) (cas_common.cuh::
 // quantize_u8; ops/cas.py::quantize_u8).  Every H, W, bh >= 1 runs and the
@@ -29,9 +33,10 @@
 // against 4 bytes read and 1 written: device memory bounds it.  At (3,
 // 2048, 4096) it reads 100.7 MB and writes 25.2 MB: ~37.6 us at the 3.35
 // TB/s peak.  Both forms move what their CAS kernel moves (K10a: K3's
-// first design), halo included (K10a ~1.2 reads of each input element,
-// K10b (R+2)/R row reads), so the gap between that CAS kernel's time and
-// its form's time is the CAS arithmetic.
+// first design, which no CAS kernel runs any more), halo included (K10a
+// ~1.2 reads of each input element, K10b (R+2)/R row reads), so the gap
+// between that CAS kernel's time and its form's time is the CAS
+// arithmetic.
 #include "band_pipeline.cuh"
 #include "cas_common.cuh"
 

@@ -4,7 +4,8 @@ Counterparts of vkresample_tpu/ops/cas_pallas.py:
 
   K1 cas_parity4_planes_u2  quad-parity CAS (u=2 quad route)   csrc/cas_grid.cu
                                                                (K4's U=2 instance)
-  K2 cas_parity_planes_u2   rows-parity CAS (u=2 rows route)   csrc/cas_parity.cu
+  K2 cas_parity_planes_u2   rows-parity CAS (u=2 rows route)   csrc/cas_rows.cu
+                                                               (K5's kernel at u=2)
   K3 cas_quantize           woven CAS (cas_quantize_pallas)    csrc/cas_rows.cu
                                                                (K5's kernel at u=1)
   K4 cas_parity_grid_planes grid-parity CAS (u x u planes)     csrc/cas_grid.cu
@@ -32,8 +33,8 @@ kernels K8 and K9 are in ops/ycas_cuda.py.
 
 Each wrapper runs its kernel on a CUDA tensor (on the current stream; a
 launch error raises) and its plain version on a CPU tensor, and counts its
-kernel launches in ``.launches``.  K1 and K3 also record in ``.staging``
-the staging form (``staging_form``) of their last launch.
+kernel launches in ``.launches``.  K1, K2 and K3 also record in
+``.staging`` the staging form (``staging_form``) of their last launch.
 """
 from __future__ import annotations
 
@@ -84,8 +85,8 @@ def _launch(entry: str, device, *args) -> None:
 
 
 def staging_form(row_bytes: int, ptrs) -> str:
-    """How the kernels of csrc/cas_grid.cu and csrc/cas_rows.cu (K1, K3, K4,
-    K5) copy their inputs into shared memory: "16-byte" (cp.async chunks)
+    """How the kernels of csrc/cas_grid.cu and csrc/cas_rows.cu (K1, K2, K3,
+    K4, K5) copy their inputs into shared memory: "16-byte" (cp.async chunks)
     where a row of row_bytes is a whole number of 16-byte chunks and every
     input address in ptrs is on a 16-byte boundary, else "per element"."""
     aligned = row_bytes % 16 == 0 and all(p % 16 == 0 for p in ptrs)
@@ -193,8 +194,9 @@ def cas_parity_planes_u2_reference(U, O, sharpen: float):
 def cas_parity_planes_u2(U, O, sharpen: float):
     """u=2 rows-parity fused CAS: sample rows U and odd rows O (..., h, W),
     int16 Q2.14 or float32, to the uint8 even-row and odd-row planes (E, D)
-    of the same shape.  CUDA tensors go through csrc/cas_parity.cu, CPU
-    tensors take the plain version."""
+    of the same shape.  CUDA tensors go through csrc/cas_rows.cu's kernel
+    at u = 2, which writes the woven rows to E and D (identical on every
+    pixel to the plain version), CPU tensors take the plain version."""
     _check("rows-parity CAS", (U, O))
     if U.device.type == "cpu":
         return cas_parity_planes_u2_reference(U, O, sharpen)
@@ -202,14 +204,16 @@ def cas_parity_planes_u2(U, O, sharpen: float):
     E, D = (torch.empty(U.shape, dtype=torch.uint8, device=U.device) for _ in range(2))
     if U.numel() == 0:
         return E, D
-    _launch("vkr_cas_parity_u2", U.device, U.data_ptr(), O.data_ptr(),
-            E.data_ptr(), D.data_ptr(), U.numel() // (h * W), h, W,
-            int(U.dtype == torch.int16), float(sharpen))
+    ptrs = (U.data_ptr(), O.data_ptr())
+    _launch("vkr_cas_parity_u2", U.device, *ptrs, E.data_ptr(), D.data_ptr(),
+            U.numel() // (h * W), h, W, int(U.dtype == torch.int16), float(sharpen))
     cas_parity_planes_u2.launches += 1
+    cas_parity_planes_u2.staging = staging_form(W * U.element_size(), ptrs)
     return E, D
 
 
 cas_parity_planes_u2.launches = 0
+cas_parity_planes_u2.staging = None
 
 
 # ---------------------------------------------------------------------------
