@@ -109,6 +109,23 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
               K3 beside K6 and K7 at their shape, K10c beside K3 and K10b
               beside K7 (bh 128 and 64) at (3, 2048, 4096), and the device
               grid weave
+  7. batched  build_batched_upscale (N = 3 seeded frames, the route's kernel
+              launched once per batch with N*3 planes) on each kernel's route:
+              quad 2048x1024 -p 2 and -p 0 (K1), rows 1440x1080 (K2), u=3
+              1280x720 (K5), the 1.5x chain (K3), -c2c u=3 1280x720 (K4),
+              the first and last frame <= 1 LSB from the fp64 oracle and every
+              frame <= 1 LSB from the single-frame call; the folder CLI
+              in-process on the card (12 seeded 2048x1024 frames, -u 2 -p 2
+              -batch 8 -numthreads 8: two K1 launches, every output <= 1 LSB
+              from the single-frame pipeline, then -resume skipping all 12);
+              then, printed only: device ms/frame of the batched call at N =
+              1, 4, 8 beside build_upscale (-n 20, CUDA events, in turns), a
+              batch of 8's host <-> device transfers (pageable, as the CLI's
+              loop has them; device -> host also into pinned buffers), decode and
+              encode seconds per frame (one thread; 8 frames on 8 threads),
+              the CLI's frames/s on 24 frames, and the zlib reader's decode
+              of one Paeth-filtered 2048x1024 frame with the C and the Python
+              row filters
 
 The line before the card's line lists each kernel with its launches over
 the routes and runs, its worst difference, its time, its plain version's
@@ -375,6 +392,243 @@ def cas_split_fn(plan, dev, kid: str, bh):
     return lambda img: quantize_cuda.copy_quantize_mono(woven(img), bh)
 
 
+# batched run -> ((h, w), upscale, precision, r2c, its kernel): N = 3 frames
+# through build_batched_upscale as the folder CLI calls it (the parity planes
+# where the route has them, else planar frames)
+BATCHED = {
+    "quad -p 2": ((1024, 2048), 2.0, "HALF", True, "K1"),
+    "quad -p 0": ((1024, 2048), 2.0, "SINGLE", True, "K1"),
+    "rows -p 2": ((1080, 1440), 2.0, "HALF", True, "K2"),
+    "u=3 -p 2": ((720, 1280), 3.0, "HALF", True, "K5"),
+    "chain 1.5x -p 0": ((720, 1280), 1.5, "SINGLE", True, "K3"),
+    "c2c grid u=3 -p 2": ((720, 1280), 3.0, "HALF", False, "K4"),
+}
+BATCH_N = 3
+FOLDER_FRAMES = 12  # -batch 8: a batch of 8, then a tail of 4
+RATE_FRAMES = 24  # the frames/s run: three batches of 8
+
+
+def paeth_png(path: str, img) -> None:
+    """Write (h, w, 3) uint8 as an 8-bit RGB PNG with every row Paeth
+    filtered (what adaptive encoders pick for most rows of photographs)."""
+    import zlib
+
+    import numpy as np
+
+    from vkresample_tpu_torch.io import png
+
+    h, w, _ = img.shape
+    raw = img.reshape(h, 3 * w).astype(np.int16)
+    a, b, c = (np.zeros_like(raw) for _ in range(3))
+    a[:, 3:], b[1:], c[1:, 3:] = raw[:, :-3], raw[:-1], raw[:-1, :-3]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.empty((h, 1 + 3 * w), np.uint8)
+    rows[:, 0] = 4
+    rows[:, 1:] = ((raw - pred) & 0xFF).astype(np.uint8)
+    ihdr = (w).to_bytes(4, "big") + (h).to_bytes(4, "big") + bytes([8, 2, 0, 0, 0])
+    with open(path, "wb") as f:
+        f.write(png._SIG + png._chunk(b"IHDR", ihdr)
+                + png._chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + png._chunk(b"IEND", b""))
+
+
+def batch_frames_hwc(out, fmt, plan):
+    """A batched call's planar output (N, C, H, W), or its parity planes of
+    `fmt` each (N, C, ...), as N (H, W, C) uint8 host frames."""
+    n = (out if fmt is None else out[0]).shape[0]
+    if fmt is None:
+        return [woven_hwc(out[i], "planar", plan) for i in range(n)]
+    return [woven_hwc(tuple(p[i] for p in out), fmt, plan) for i in range(n)]
+
+
+def run_cli(argv):
+    """The port's CLI in-process on CUDA device 0: (exit code, stdout lines)."""
+    import contextlib
+    import io
+
+    from vkresample_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def batched_phase(dev, card, kernels, oracles, image, zero_counters):
+    """Phase 7: build_batched_upscale on each kernel's route (N = 3 frames,
+    one launch of the route's kernel per batch), the folder CLI on the card,
+    and the batched path's times: device ms/frame at N = 1, 4, 8 beside the
+    single frame, the host <-> device transfers of a batch, the CLI's
+    frames/s with decode and encode alone, and the zlib reader's Paeth
+    decode (scripts/torch_folder_host.py times it beside the Python row
+    loops)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vkresample_tpu_torch import Engine, Precision, UpscalePlan, build_batched_upscale
+    from vkresample_tpu_torch import build_upscale
+    from vkresample_tpu_torch.io import png
+    from vkresample_tpu_torch.io.folder import frame_paths
+    from vkresample_tpu_torch.oracle.numpy_ref import upscale_oracle
+    from vkresample_tpu_torch.pipeline.timing import time_amortized
+    from vkresample_tpu_torch.pipeline.upscale import planes_format
+
+    def counts():
+        return {kid: k.get("wrapper", k["fn"]).launches for kid, k in kernels.items()}
+
+    def expect_launches(run, kid, n):
+        got = counts()
+        require(got[kid] == n and sum(got.values()) == n,
+                f"{run}: launches {got}, expected {n} of {kid} and none else")
+        kernels[kid]["launches"] += n
+        return got
+
+    last_oracles = {}
+    for run, ((h, w), u, prec, r2c, kid) in BATCHED.items():
+        plan = UpscalePlan(h=h, w=w, upscale=u, precision=Precision[prec], r2c=r2c,
+                           engine=Engine.AUTO)
+        rng = np.random.default_rng(SEED + 7 + h + w)
+        frames = np.stack([image(h, w)] + [rng.integers(0, 256, (h, w, C), np.uint8)
+                                           for _ in range(BATCH_N - 1)])
+        key = (h, w, u, r2c)
+        if key not in last_oracles:
+            last_oracles[key] = upscale_oracle(frames[-1], plan)
+        fmt = planes_format(plan)
+        fn = build_batched_upscale(plan, dev, planar_out=True, planes_out=fmt is not None)
+        x = torch.from_numpy(frames).to(dev)
+        fn(x)  # banks built, uploaded
+        torch.cuda.synchronize()
+        zero_counters()
+        out = fn(x)
+        torch.cuda.synchronize()
+        got_counts = expect_launches(f"batched {run}", kid, 1)
+        got = batch_frames_hwc(out, fmt, plan)
+        require(len(got) == BATCH_N and all(g.shape == (plan.H, plan.W, C) for g in got),
+                f"batched {run}: bad output {[g.shape for g in got]}")
+        single = build_upscale(plan, dev, planes_out=fmt is not None, planar_out=True)
+        one = [woven_hwc(single(f), fmt or "planar", plan) for f in frames]
+        d_first = u8_diff([got[0]], [oracles[key]])[0]
+        d_last = u8_diff([got[-1]], [last_oracles[key]])[0]
+        d_one, same = u8_diff(got, one)
+        print(f"[7 batched] {run}: {BATCH_N} x {w}x{h} -> {plan.W}x{plan.H} "
+              f"({fmt or 'planar'}), max|diff| vs fp64 oracle first frame {d_first}, last "
+              f"frame {d_last} LSB; vs the single-frame call {d_one} LSB, identical "
+              f"{same:.6f}; launches {got_counts}")
+        require(max(d_first, d_last) <= TOL_LSB, f"batched {run} is off the oracle")
+        require(d_one <= TOL_LSB, f"batched {run} differs from the single-frame call")
+
+    # the folder CLI on the card: 12 frames at -batch 8 (8, then a tail of 4)
+    root = os.path.join(ROOT, "vkresample_tpu_torch", "build", "smoke", "batched")
+    shutil.rmtree(root, ignore_errors=True)
+    inp, outp, outp24 = (os.path.join(root, d) for d in ("inp", "outp", "outp24"))
+    for d in (inp, outp, outp24):
+        os.makedirs(d)
+    (h, w), u, prec = BATCHED["quad -p 2"][:3]
+    plan = UpscalePlan(h=h, w=w, upscale=u, precision=Precision[prec])
+    rng = np.random.default_rng(SEED + 12)
+    frames = rng.integers(0, 256, (RATE_FRAMES, h, w, C), np.uint8)
+    with png.PngPool(8) as pool:
+        pool.encode_batch(frame_paths(inp, RATE_FRAMES), frames)
+    argv = ["-ifolder", inp, "-ofolder", outp, "-numfiles", str(FOLDER_FRAMES), "-u", "2",
+            "-p", "2", "-batch", "8", "-numthreads", "8"]
+    zero_counters()
+    rc, lines = run_cli(argv)
+    for line in lines:
+        print(f"[7 batched] cli: {line}")
+    require(rc == 0, f"folder CLI exited {rc}")
+    print(f"[7 batched] cli launches {expect_launches('folder CLI', 'K1', 2)}")
+    single = build_upscale(plan, dev, planes_out=True, planar_out=True)
+    worst, same_all = 0, []
+    for f, path in zip(frames, frame_paths(outp, FOLDER_FRAMES)):
+        d, same = u8_diff([png.read_png(path)], [woven_hwc(single(f), "quad", plan)])
+        worst = max(worst, d)
+        same_all.append(same)
+    print(f"[7 batched] cli: {FOLDER_FRAMES} outputs vs the single-frame pipeline: max|diff| "
+          f"{worst} LSB, identical {min(same_all):.6f} (worst frame)")
+    require(worst <= TOL_LSB, "folder CLI output differs from the single-frame pipeline")
+    rc, lines = run_cli(argv + ["-resume"])
+    for line in lines:
+        print(f"[7 batched] cli -resume: {line}")
+    require(rc == 0 and f"Resume: skipping {FOLDER_FRAMES} already-upscaled frames" in lines
+            and "Resume: nothing to do" in lines, "folder CLI -resume did not skip every frame")
+
+    # device ms/frame of the batched call at N = 1, 4, 8 beside the single frame
+    fn_one = build_upscale(plan, dev, planes_out=True, planar_out=True)
+    fn = build_batched_upscale(plan, dev, planar_out=True, planes_out=True)
+    x8 = torch.from_numpy(frames[:8]).to(dev)
+    for n in (0, 1, 4, 8):
+        if n == 0:
+            _, ms = time_amortized(fn_one, (x8[0],), 20, dev)
+        else:
+            _, ms = time_amortized(fn, (x8[:n],), 20, dev)
+            ms /= n
+        what = "build_upscale, one frame" if n == 0 else f"build_batched_upscale N = {n}"
+        print(f"[7 batched] times: {what}: {ms:.4f} ms/frame (quad -p 2 {w}x{h} -> "
+              f"{plan.W}x{plan.H}, -n 20 calls, CUDA events) on {card}")
+
+    # host <-> device transfers of one batch of 8, pageable memory as the loop has it
+    h2d, d2h = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xd = torch.from_numpy(frames[:8]).to(dev)
+        torch.cuda.synchronize()
+        h2d.append((time.perf_counter() - t0) * 1e3)
+        out = fn(xd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = [p.cpu().numpy() for p in out]
+        d2h.append((time.perf_counter() - t0) * 1e3)
+    print(f"[7 batched] times: host -> device 8 x {h}x{w}x3 uint8 ({frames[:8].nbytes} bytes): "
+          f"{', '.join(f'{m:.4f}' for m in h2d)} ms; device -> host 4 quad planes "
+          f"({sum(p.nbytes for p in host)} bytes): {', '.join(f'{m:.4f}' for m in d2h)} ms, "
+          f"pageable, host clock after a synchronize, on {card}")
+
+    # decode and encode alone: 8 frames on 8 threads, one frame on one thread
+    paths = frame_paths(inp, 8)
+    outs = [os.path.join(root, f"enc{i}.png") for i in range(8)]
+    with png.PngPool(8) as pool:
+        t0 = time.perf_counter()
+        pool.decode_batch(paths, w, h)
+        dec8 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pool.encode_batch_planar_parity4(outs, host)
+        enc8 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    png.read_png(paths[0])
+    dec1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    png.write_png_planar_parity4(outs[0], [p[0] for p in host])
+    enc1 = time.perf_counter() - t0
+    print(f"[7 batched] times: decode {w}x{h} frames: {dec1:.6f} s/frame on one thread, "
+          f"{dec8 / 8:.6f} s/frame for 8 on 8 threads; encode {plan.W}x{plan.H} from quad "
+          f"planes: {enc1:.6f} s/frame on one thread, {enc8 / 8:.6f} s/frame for 8 on 8 "
+          f"threads (codec {png._codec})")
+
+    # the CLI end to end: 24 frames, -batch 8 -numthreads 8
+    rc, lines = run_cli(["-ifolder", inp, "-ofolder", outp24, "-numfiles", str(RATE_FRAMES),
+                         "-u", "2", "-p", "2", "-batch", "8", "-numthreads", "8"])
+    for line in lines:
+        print(f"[7 batched] cli {RATE_FRAMES} frames: {line}")
+    require(rc == 0 and any(line.startswith(f"Upscaled {RATE_FRAMES} frames") for line in lines),
+            f"folder CLI on {RATE_FRAMES} frames exited {rc}")
+
+    # the zlib reader's Paeth decode (the codec of a card machine without libpng)
+    paeth = os.path.join(root, "paeth.png")
+    paeth_png(paeth, frames[0])
+    t0 = time.perf_counter()
+    img = png._zlib_read(paeth)
+    ms = (time.perf_counter() - t0) * 1e3
+    require(np.array_equal(img, frames[0]), "the Paeth frame decodes wrong")
+    filters = "in C" if png._filters() is not None else "in Python: g++ is absent"
+    print(f"[7 batched] times: zlib reader, one Paeth-filtered {w}x{h} RGB frame: {ms:.3f} ms "
+          f"(row filters {filters}, host clock)")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -480,9 +734,15 @@ def main() -> int:
         """The unfused form K5 replaces: weave_rows + K3."""
         return cas_cuda.cas_quantize(dense.weave_rows(U, O, u), s)
 
+    # the batched path's plane counts (frames x channels in one launch):
+    # phase 7's N = 3 frames, then the folder CLI's -batch 8 and its tail of 4
+    batch_planes = [n * C for n in (BATCH_N, 8, FOLDER_FRAMES - 8)]
+
     # kernel id -> name, wrapper (fn unless given: the function whose launch
     # counter is read), kernel call, plain version, sources, argument cases
-    # (the first is the route shape, timed in phase 6), dtypes (int16 and
+    # (the first is the route shape, timed in phase 6; the batched path's
+    # shapes last, each route shape with N = 3 frames in its planes, K1 also
+    # with the CLI's 8 and 4), dtypes (int16 and
     # f32 unless given), argument maker, bound from the arguments; exact:
     # identical to the plain version on every pixel; vs: (label, form, max
     # LSB) it is held against in phase 3 (not when max LSB is None) and
@@ -500,7 +760,9 @@ def main() -> int:
             # single rows or columns, and misaligned planes
             cases=[(C, 1024, 2048), (2, 37, 200), (2, 37, 201), (2, 19, 136), (2, 21, 202),
                    (2, 13, 132), (2, 65, 70), (1, 1, 70), (2, 40, 1), (1, 17, 3), (1, 1, 1)]
-            + [((2, 21, 136), "misaligned"), ((C, 1024, 2048), "misaligned")],
+            + [((2, 21, 136), "misaligned"), ((C, 1024, 2048), "misaligned")]
+            + [(n, 1024, 2048) for n in batch_planes] + [((batch_planes[0], 1024, 2048),
+                                                          "misaligned")],
             args=lambda case, dt: image_args(case, dt, 4),
             bound=lambda a: cas_bound(a[0].shape, 4, a[0].element_size()),
             exact=True,
@@ -518,7 +780,8 @@ def main() -> int:
             cases=[(C, 1080, 2880), (C, 1024, 4096), (2, 37, 200), (2, 32, 136),
                    (2, 65, 131), (2, 21, 202), (2, 13, 132), (1, 1, 70), (1, 1, 129),
                    (2, 40, 1), (1, 1, 1)]
-            + [((2, 37, 200), "misaligned"), ((C, 1080, 2880), "misaligned")],
+            + [((2, 37, 200), "misaligned"), ((C, 1080, 2880), "misaligned")]
+            + [(batch_planes[0], 1080, 2880), ((batch_planes[0], 1080, 2880), "misaligned")],
             args=lambda case, dt: image_args(case, dt, 2),
             bound=lambda a: cas_bound(a[0].shape, 2, a[0].element_size()),
             exact=True,
@@ -536,7 +799,8 @@ def main() -> int:
             cases=[(C, 2160, 3840), (C, 1080, 1920), (C, 1800, 3200), (2, 37, 201),
                    (2, 37, 200), (2, 65, 131), (2, 21, 202), (2, 13, 132), (2, 64, 136),
                    (2, 130, 129), (1, 1, 70), (1, 1, 129), (2, 40, 1), (1, 1, 1)]
-            + [((2, 37, 200), "misaligned"), ((C, 2160, 3840), "misaligned")],
+            + [((2, 37, 200), "misaligned"), ((C, 2160, 3840), "misaligned")]
+            + [(batch_planes[0], 1080, 1920)],
             args=lambda case, dt: image_args(case, dt, 1),
             bound=lambda a: cas_bound(a[0].shape, 1, a[0].element_size()),
             exact=True,
@@ -556,7 +820,8 @@ def main() -> int:
             + [((1, 1, 5), 1), ((1, 1, 70), 3), ((2, 40, 1), 4), ((1, 9, 66), 6),
                ((1, 17, 3), 2), ((1, 1, 1), 8)]
             + [((2, 21, 136), u, "misaligned") for u in (1, 3, 8)]
-            + [((C, 540, 960), 4, "misaligned")],
+            + [((C, 540, 960), 4, "misaligned")]
+            + [((batch_planes[0], 720, 1280), 3)],
             args=grid_args,
             bound=lambda a: cas_bound(a[0][0].shape, a[1] ** 2, a[0][0].element_size()),
             exact=True,
@@ -576,7 +841,8 @@ def main() -> int:
                ((1, 9, 66), 11), ((1, 1, 1), 3), ((1, 1, 70), 2), ((2, 40, 1), 4),
                ((1, 1, 129), 6)]
             + [((2, 37, 200), 3, "misaligned"), ((2, 21, 136), 4, "misaligned"),
-               ((C, 540, 3840), 4, "misaligned")],
+               ((C, 540, 3840), 4, "misaligned")]
+            + [((batch_planes[0], 720, 3840), 3)],
             args=rows_args,
             bound=lambda a: cas_bound(a[0].shape[:-2] + (a[2] * a[0].shape[-2], a[0].shape[-1]),
                                       1, a[0].element_size()),
@@ -949,6 +1215,9 @@ def main() -> int:
     ms = cuda_ms(lambda: weave_grid_u8(grid_u8, 3), 50)
     print(f"[6 times] weave_grid_u8 9 x {(C, 720, 1280)} uint8 (stack + reshape): "
           f"{ms:.4f} ms on {card}")
+
+    # 7. batched: frames folded into the kernels' plane axis, the folder CLI
+    batched_phase(dev, card, kernels, oracles, image, zero_counters)
 
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda"} | {key: k[key] for key in (

@@ -8,7 +8,10 @@ The routes, the fused-y runs, the woven-CAS A/B runs ("cas ab K3", "cas ab
 K6 bh=64" ..., "cas ab K7 bh=128") and the CAS-split runs ("cas split
 K10a", "cas split K10b bh=64", "cas split K10b bh=128", "cas split K10c")
 are chip_smoke.py's ROUTES, FUSED, CAS_AB and CAS_SPLIT (full frame sizes,
-3 channels, a seeded random frame already on the device).  Every frame
+3 channels, a seeded random frame already on the device); the batched runs
+("batched quad -p 2 N=1", "N=4", "N=8") put N such frames through one call
+of build_batched_upscale, as the folder CLI does, and every number of theirs
+is per frame (per call / N).  Every frame
 runs its GEMMs inside pipeline/upscale.py::fp32_matmul (the built
 pipelines and chip_smoke's frame functions pin it per call), so the
 CUDA-graph capture records fp32 GEMMs too.  For each it prints, with the
@@ -69,26 +72,38 @@ def _graph_ms(fn, x, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
+# batched run -> frames per call, on the flagship quad -p 2 frame
+BATCHED_RUNS = {f"batched quad -p 2 N={n}": n for n in (1, 4, 8)}
+
+
 def route_fn(name, dev):
-    """(plan, frame function) of a chip_smoke route, fused-y or A/B run."""
+    """(plan, frame function, frames per call) of a chip_smoke route,
+    fused-y, A/B or batched run."""
     from chip_smoke import (CAS_AB, CAS_AB_FRAME, CAS_SPLIT, FUSED, ROUTES, cas_ab_fn,
                             cas_split_fn, fused_y_fn)
 
-    from vkresample_tpu_torch import Engine, Precision, UpscalePlan, build_upscale
+    from vkresample_tpu_torch import (Engine, Precision, UpscalePlan, build_batched_upscale,
+                                      build_upscale)
+
+    if name in BATCHED_RUNS:
+        (h, w), u, prec = ROUTES["quad -p 2"][:3]
+        plan = UpscalePlan(h=h, w=w, upscale=u, precision=Precision[prec])
+        return plan, build_batched_upscale(plan, dev, planar_out=True, planes_out=True), \
+            BATCHED_RUNS[name]
 
     for runs, make in ((CAS_AB, cas_ab_fn), (CAS_SPLIT, cas_split_fn)):
         if name in runs:
             (h, w), (kid, bh) = CAS_AB_FRAME, runs[name]
             plan = UpscalePlan(h=h, w=w, upscale=2.0, precision=Precision.HALF)
-            return plan, make(plan, dev, kid, bh)
+            return plan, make(plan, dev, kid, bh), None
     if name in FUSED:
         (h, w), prec, kid, _ = FUSED[name]
         plan = UpscalePlan(h=h, w=w, upscale=2.0, precision=Precision[prec])
-        return plan, fused_y_fn(plan, dev, kid)
+        return plan, fused_y_fn(plan, dev, kid), None
     (h, w), u, prec, engine, r2c, entry, _ = ROUTES[name]
     plan = UpscalePlan(h=h, w=w, upscale=u, precision=Precision[prec], r2c=r2c,
                        engine=Engine[engine])
-    return plan, build_upscale(plan, dev, planes_out=entry == "planes")
+    return plan, build_upscale(plan, dev, planes_out=entry == "planes"), None
 
 
 def profile_route(name, dev, card) -> None:
@@ -98,13 +113,16 @@ def profile_route(name, dev, card) -> None:
 
     from vkresample_tpu_torch.pipeline.timing import time_amortized
 
-    plan, fn = route_fn(name, dev)
+    plan, fn, n = route_fn(name, dev)
     h, w = plan.h, plan.w
-    img = np.random.default_rng(20261016 + h + w).integers(0, 256, (h, w, 3), np.uint8)
+    lead = () if n is None else (n,)  # a batched call's frames
+    per = n or 1
+    img = np.random.default_rng(20261016 + h + w).integers(0, 256, lead + (h, w, 3), np.uint8)
     x = torch.from_numpy(img).to(dev)
     _, ms = time_amortized(fn, (x,), 20, dev)
+    ms /= per
     try:
-        graph = f"{_graph_ms(fn, x):.4f} ms/frame"
+        graph = f"{_graph_ms(fn, x) / per:.4f} ms/frame"
     except RuntimeError as e:  # a frame that cannot be captured says why
         graph = f"not capturable ({str(e).splitlines()[0][:120]})"
     torch.cuda.synchronize()
@@ -115,18 +133,19 @@ def profile_route(name, dev, card) -> None:
             fn(x)
         end.record()
         end.synchronize()
-    span = start.elapsed_time(end) / FRAMES
+    calls = FRAMES * per  # frames profiled
+    span = start.elapsed_time(end) / calls
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / FRAMES
-    launches = sum(e.count for e in kernels) / FRAMES
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
+    launches = sum(e.count for e in kernels) / calls
     print(f"[{name}] {w}x{h} -> {plan.W}x{plan.H}: {ms:.4f} ms/frame; graph {graph}; "
           f"busy {busy:.4f} ms/frame (idle {max(0.0, 1 - busy / ms):.3f}; profiled frame "
-          f"{span:.4f} ms); {launches:.0f} kernel launches/frame; {card}")
+          f"{span:.4f} ms); {launches:.3g} kernel launches/frame; {card}")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     for e in ranked[:8] + [e for e in ranked[8:] if "cas_" in e.key]:
-        print(f"[{name}]   {e.self_device_time_total / 1e3 / FRAMES:.4f} ms/frame "
-              f"x{e.count / FRAMES:.0f}  {e.key[:110]}")
+        print(f"[{name}]   {e.self_device_time_total / 1e3 / calls:.4f} ms/frame "
+              f"x{e.count / calls:.3g}  {e.key[:110]}")
 
 
 def main(argv) -> int:
@@ -139,7 +158,8 @@ def main(argv) -> int:
     from chip_smoke import CAS_AB, CAS_SPLIT, FUSED, ROUTES
 
     names = ([n for n in ROUTES if "c2c" in n] if not argv
-             else list(ROUTES) + list(FUSED) + list(CAS_AB) + list(CAS_SPLIT) if argv == ["all"]
+             else list(ROUTES) + list(FUSED) + list(CAS_AB) + list(CAS_SPLIT)
+             + list(BATCHED_RUNS) if argv == ["all"]
              else argv)
     card = _card()
     print(f"{card}  torch {torch.__version__} cuda {torch.version.cuda}")

@@ -181,7 +181,7 @@ def test_cli_validate_and_golden(tmp_path, capsys):
         (("-u", "1.5", "-validate"), 0, "maxdiff="),
         (("-u", "2", "-p", "1"), 1, "not ported yet (ROADMAP.md modules item 2)"),
         (("-u", "2", "-c2c", "-validate"), 0, "(tol 1) OK"),
-        (("-ifolder", "x", "-u", "2"), 1, "not ported yet"),
+        (("-ifolder", "x", "-u", "2"), 1, "Image not found"),
         (("-u", "2", "-engine"), 1, "No engine"),
         (("-p",), 1, "No precision"),
     ],

@@ -127,6 +127,46 @@ def test_readers_decode_every_png_format(tmp_path, name, color, depth, interlace
         np.testing.assert_array_equal(png.read_png(path), want)
 
 
+@pytest.mark.parametrize("name,color,depth,interlace,hw,trns", CASES, ids=[c[0] for c in CASES])
+def test_c_and_python_row_filters_decode_alike(tmp_path, monkeypatch, name, color, depth,
+                                               interlace, hw, trns):
+    """The zlib reader's two unfilters, the C one (io/native/unfilter.cpp)
+    and the Python row loops taken where g++ is missing, decode every
+    hand-written file, all five filter types in turn, to the same pixels."""
+    if png._filters() is None:
+        pytest.skip("g++ is missing: only the Python row loops exist here")
+    rng = np.random.default_rng(sum(map(ord, name)) + 1)
+    h, w = hw
+    plte = rng.integers(0, 256, (200, 3)) if color == 3 else None
+    top = 200 if color == 3 else 1 << depth
+    samples = rng.integers(0, min(top, 1 << depth), (h, w, CHANNELS[color]))
+    path = str(tmp_path / "f.png")
+    _write_png(path, samples, depth, color, interlace, plte,
+               bytes(rng.integers(0, 256, 8).astype(np.uint8)) if trns else None)
+    want = _expected_rgb(samples, depth, color, plte)
+    np.testing.assert_array_equal(png._zlib_read(path), want)  # the C unfilter
+    monkeypatch.setattr(png, "_filters", lambda: None)
+    np.testing.assert_array_equal(png._zlib_read(path), want)  # the Python loops
+
+
+@pytest.mark.parametrize("has_gpp", [True, False])
+def test_zlib_codec_line_names_its_row_filters(monkeypatch, capsys, has_gpp):
+    """Without libpng the codec line says which unfilter the reader runs."""
+    monkeypatch.setattr(png, "_codec", None)
+    monkeypatch.setattr(png, "_lib", None)
+    monkeypatch.setattr(png, "_build_native", lambda: None)
+    if not has_gpp:
+        monkeypatch.setattr(png, "_filters", lambda: None)
+    elif png._filters() is None:
+        pytest.skip("g++ is missing here")
+    capsys.readouterr()
+    assert png._native() is None
+    line = capsys.readouterr().out
+    assert "PNG codec: stdlib zlib fallback" in line
+    assert ("row filters in C" in line) == has_gpp
+    assert ("row filters in Python (g++ unavailable)" in line) == (not has_gpp)
+
+
 def _cli(capsys, *args):
     capsys.readouterr()
     rc = cli.main(list(args), device="cpu")

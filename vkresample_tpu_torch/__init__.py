@@ -10,13 +10,17 @@ storage (-p 2) for every factor (integer and fractional) with every axis
 <= 8192, on the GEMM engine (R2C: quad and rows parity routes at u=2, the
 rows route at integer u >= 3, the dense chain otherwise; c2c: the staged
 grid at p <= 4 phases, the dense c2c chain otherwise) and on the torch.fft
-reference tier (-engine xla).  fp64 and larger axes raise
+reference tier (-engine xla), one frame or a batch of frames a call, and
+the batched-folder CLI mode (-ifolder -ofolder -numfiles -numthreads
+-batch -resume) with its PNG worker pool.  fp64 and larger axes raise
 NotImplementedError naming their ROADMAP.md item.  The entry points run
 on the current CUDA device unless the caller passes device="cpu".
 
 Public API:
     upscale(img, upscale, precision=..., sharpen=..., r2c=..., engine=..., device=...) -> (H, W, C) uint8
     build_upscale(plan, device, planes_out=..., planar_out=...) -> per-frame function
+    upscale_batch(imgs, plan, device=...) -> (N, H, W, C) uint8
+    build_batched_upscale(plan, device, planar_out=..., planes_out=...) -> per-batch function
     UpscalePlan, Precision, Engine
 """
 
@@ -24,4 +28,5 @@ __version__ = "0.1.0"
 
 from .core.config import Engine, Precision  # noqa: F401
 from .core.plan import UpscalePlan  # noqa: F401
+from .pipeline.batched import build_batched_upscale, upscale_batch  # noqa: F401
 from .pipeline.upscale import build_upscale, upscale  # noqa: F401

@@ -11,11 +11,15 @@ Two codecs, same pixel semantics (decode forces 8-bit RGB):
   takes every color type and bit depth, interlaced or not, to what the
   native reader's libpng transforms give: palette entries looked up in
   PLTE, 1/2/4-bit gray scaled to 0-255, 16-bit samples cut to their high
-  byte, alpha and tRNS dropped.  Its writer writes 8-bit RGB; planes are
-  woven on the host first.
+  byte, alpha and tRNS dropped.  It undoes the scanline filters in C
+  (io/native/unfilter.cpp, built with g++ at first use, no libpng; one
+  ctypes call per image, GIL released) and in Python loops where g++ is
+  missing.  Its writer writes 8-bit RGB; planes are woven on the host
+  first.
 
-The first call prints which codec is in use.  This is host I/O only; it
-never touches the device path.
+The first call prints which codec (and, for zlib, which row filters) is in
+use.  PngPool decodes and encodes batches of frames on num_threads workers
+(-numthreads).  This is host I/O only; it never touches the device path.
 """
 from __future__ import annotations
 
@@ -33,34 +37,65 @@ import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PNGIO_SRC = os.path.join(_PKG_DIR, "io", "native", "pngio.cpp")
+_UNFILTER_SRC = os.path.join(_PKG_DIR, "io", "native", "unfilter.cpp")
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
 
 _lock = threading.Lock()
 _lib = None
 _codec: Optional[str] = None  # "native" or "zlib", decided at first use
+_filter_lock = threading.Lock()
+_filter_lib = None
+_filters_decided = False
 
 
-def _build_native() -> Optional[str]:
-    """g++ build of pngio.cpp (content-named, atomic rename); None when the
-    source, the compiler or libpng is missing."""
-    if not os.path.exists(_PNGIO_SRC) or shutil.which("g++") is None:
+def _build_lib(src: str, stem: str, libs) -> Optional[str]:
+    """g++ build of one source under io/native/ into build/, named by its
+    content (atomic rename); None when the source, the compiler or a
+    library in `libs` is missing."""
+    if not os.path.exists(src) or shutil.which("g++") is None:
         return None
-    with open(_PNGIO_SRC, "rb") as f:
+    with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(_BUILD_DIR, f"libvkrpng_{digest}.so")
+    out = os.path.join(_BUILD_DIR, f"{stem}_{digest}.so")
     if os.path.exists(out):
         return out
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     proc = subprocess.run(
-        ["g++", "-O3", "-fPIC", "-std=c++17", "-shared", "-o", tmp,
-         _PNGIO_SRC, "-lpng", "-lz", "-lpthread"],
+        ["g++", "-O3", "-fPIC", "-std=c++17", "-shared", "-o", tmp, src, *libs],
         capture_output=True, timeout=300,
     )
     if proc.returncode != 0:
         return None
     os.replace(tmp, out)
     return out
+
+
+def _build_native() -> Optional[str]:
+    """The native codec's library (needs libpng), or None."""
+    return _build_lib(_PNGIO_SRC, "libvkrpng", ["-lpng", "-lz", "-lpthread"])
+
+
+def _filters():
+    """The ctypes-bound C scanline unfilter of the zlib reader
+    (io/native/unfilter.cpp, no libpng needed), or None where it does not
+    build: the reader then takes its Python row loops."""
+    global _filter_lib, _filters_decided
+    with _filter_lock:
+        if not _filters_decided:
+            path = _build_lib(_UNFILTER_SRC, "libvkrunfilter", [])
+            try:
+                lib = ctypes.CDLL(path) if path is not None else None
+            except OSError:
+                lib = None
+            if lib is not None:
+                lib.vkr_png_unfilter.restype = ctypes.c_int
+                lib.vkr_png_unfilter.argtypes = [
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p,
+                ]
+            _filter_lib, _filters_decided = lib, True
+        return _filter_lib
 
 
 def _native():
@@ -106,14 +141,42 @@ def _native():
                 ]
                 lib.vkr_free.restype = None
                 lib.vkr_free.argtypes = [ctypes.c_void_p]
+                _bind_pool(lib)
                 _lib = lib
             _codec = "native" if _lib is not None else "zlib"
-            print(
-                "PNG codec: native libpng (vkresample_tpu_torch/io/native/pngio.cpp)"
-                if _lib is not None
-                else "PNG codec: stdlib zlib fallback (libpng unavailable)"
-            )
+            if _lib is not None:
+                print("PNG codec: native libpng (vkresample_tpu_torch/io/native/pngio.cpp)")
+            else:
+                print("PNG codec: stdlib zlib fallback (libpng unavailable), row filters "
+                      + ("in C (vkresample_tpu_torch/io/native/unfilter.cpp)"
+                         if _filters() is not None else "in Python (g++ unavailable)"))
         return _lib
+
+
+def _bind_pool(lib) -> None:
+    """argtypes of the native worker pool's entries (pngio.cpp
+    vkr_pool_*): each batch call blocks until its n frames are done and
+    writes one status per frame."""
+    u8p = ctypes.POINTER(ctypes.c_ubyte)
+    paths = ctypes.POINTER(ctypes.c_char_p)
+    status = ctypes.POINTER(ctypes.c_int)
+    lib.vkr_pool_create.restype = ctypes.c_void_p
+    lib.vkr_pool_create.argtypes = [ctypes.c_int]
+    lib.vkr_pool_destroy.restype = None
+    lib.vkr_pool_destroy.argtypes = [ctypes.c_void_p]
+    tail = [ctypes.c_int, ctypes.c_int, ctypes.c_int, status]  # w, h, level, status
+    lib.vkr_pool_decode_batch.restype = None
+    lib.vkr_pool_decode_batch.argtypes = [
+        ctypes.c_void_p, paths, ctypes.c_int, u8p, ctypes.c_int, ctypes.c_int, status]
+    for name, n in (("vkr_pool_encode_batch", 1), ("vkr_pool_encode_batch_planar", 1),
+                    ("vkr_pool_encode_batch_planar_parity", 2),
+                    ("vkr_pool_encode_batch_planar_parity4", 4)):
+        fn = getattr(lib, name)
+        fn.restype = None
+        fn.argtypes = [ctypes.c_void_p, paths, ctypes.c_int] + [u8p] * n + tail
+    lib.vkr_pool_encode_batch_planar_grid.restype = None
+    lib.vkr_pool_encode_batch_planar_grid.argtypes = [
+        ctypes.c_void_p, paths, ctypes.c_int, ctypes.POINTER(u8p), ctypes.c_int] + tail
 
 
 def _encode_err(rc, path) -> str:
@@ -158,9 +221,17 @@ def _avg_row(line: bytes, prev: bytes, bpp: int) -> bytearray:
 def _unfilter(lines: np.ndarray, bpp: int, path: str) -> np.ndarray:
     """Undo the filters of one image or Adam7 pass: (rows, 1 + stride)
     scanlines, each led by its filter type, -> (rows, stride) bytes; the
-    first row's prior row is zeros."""
+    first row's prior row is zeros.  One call of the C unfilter where it
+    builds; else row by row here, Avg and Paeth one byte per Python step."""
     rows, stride = lines.shape[0], lines.shape[1] - 1
     out = np.empty((rows, stride), np.uint8)
+    lib = _filters()
+    if lib is not None:
+        lines = np.ascontiguousarray(lines, np.uint8)
+        bad = lib.vkr_png_unfilter(lines.ctypes.data, rows, stride, bpp, out.ctypes.data)
+        if bad >= 0:
+            raise ValueError(f"bad PNG filter type {lines[bad, 0]} in {path}")
+        return out
     prev = np.zeros(stride, np.uint8)
     for y in range(rows):
         ftype, line = lines[y, 0], lines[y, 1:]
@@ -425,3 +496,159 @@ def write_png_planar_grid(path: str, planes, u: int, compression_level: int = 6)
                                         compression_level)
     if rc != 0:
         raise OSError(_encode_err(rc, path))
+
+
+# ---------------------------------------------------------------------------
+# batched (worker-pool) API: the -numthreads capability
+# ---------------------------------------------------------------------------
+
+
+def _c_paths(paths):
+    return (ctypes.c_char_p * len(paths))(*[os.fsencode(p) for p in paths])
+
+
+def _batch_planes(planes, n_paths: int, n_planes: int, what: str):
+    """Contiguous uint8 (N, 3, h, w) planes, n_planes of one shape, N ==
+    n_paths; ValueError naming `what` otherwise."""
+    ps = [np.ascontiguousarray(p, np.uint8) for p in planes]
+    if (len(ps) != n_planes or ps[0].ndim != 4 or ps[0].shape[1] != 3
+            or ps[0].shape[0] != n_paths or any(p.shape != ps[0].shape for p in ps)):
+        raise ValueError(f"expected {what}: {n_planes} matching (N, 3, h, w) uint8 planes "
+                         f"with N = {n_paths} paths, got {[p.shape for p in ps]}")
+    return ps
+
+
+class PngPool:
+    """Worker pool for parallel PNG decode and encode of same-sized frames
+    (counterpart of vkresample_tpu/io/png.py PngPool).
+
+    Native codec: one C++ pool (io/native/pngio.cpp vkr_pool_*), called
+    through ctypes, which releases the GIL.  zlib codec: a
+    ThreadPoolExecutor of num_threads over read_png and the single-frame
+    planar writers; zlib and the C row filters release the GIL too.  The
+    encoders take the batched planes of pipeline/batched.py moved to the
+    host, each (N, 3, ...), and one path per frame."""
+
+    def __init__(self, num_threads: int = 1):
+        self.num_threads = max(1, int(num_threads))
+        self._lib = _native()
+        self._pool = None
+        self._exec = None
+        if self._lib is not None:
+            self._pool = self._lib.vkr_pool_create(self.num_threads)
+        else:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._exec = ThreadPoolExecutor(max_workers=self.num_threads)
+
+    def close(self) -> None:
+        if self._pool:
+            self._lib.vkr_pool_destroy(self._pool)
+            self._pool = None
+        if self._exec is not None:
+            self._exec.shutdown()
+            self._exec = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _map(self, fn, *iterables) -> list:
+        """fn over the frames on the executor; every result read, so the
+        first failure raises here."""
+        return [f.result() for f in [self._exec.submit(fn, *a) for a in zip(*iterables)]]
+
+    def decode_batch(self, paths, w: int, h: int) -> np.ndarray:
+        """Decode N same-sized PNGs into one (N, h, w, 3) uint8 array.
+        FileNotFoundError for a missing file, ValueError for a frame that is
+        not w x h or does not decode."""
+        paths = list(paths)
+        n = len(paths)
+        out = np.empty((n, h, w, 3), np.uint8)
+        if self._lib is None:
+            for i, (p, img) in enumerate(zip(paths, self._map(read_png, paths))):
+                if img.shape[:2] != (h, w):
+                    raise ValueError(f"size mismatch in batch: {p} is not {w}x{h}")
+                out[i] = img
+            return out
+        status = (ctypes.c_int * n)()
+        self._lib.vkr_pool_decode_batch(self._pool, _c_paths(paths), n,
+                                        out.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+                                        w, h, status)
+        for st, p in zip(status, paths):
+            if st == -1:
+                read_png(p)  # FileNotFoundError, or the file's own decode fault
+                raise ValueError(f"libpng cannot decode {p}")
+            if st == -2:
+                raise ValueError(f"size mismatch in batch: {p} is not {w}x{h}")
+        return out
+
+    def _encode(self, entry: str, paths, planes, extra, width: int, height: int,
+                level: int, frame_writer) -> None:
+        """Native: the pool entry over the batch; zlib: frame_writer(path,
+        frame planes) per frame on the executor."""
+        paths = list(paths)
+        if self._lib is None:
+            self._map(frame_writer, paths, *planes)
+            return
+        n = len(paths)
+        status = (ctypes.c_int * n)()
+        u8p = ctypes.POINTER(ctypes.c_ubyte)
+        ptrs = [p.ctypes.data_as(u8p) for p in planes]
+        if extra is not None:  # the grid entry: a pointer table and u
+            ptrs = [(u8p * len(ptrs))(*ptrs), extra]
+        getattr(self._lib, entry)(self._pool, _c_paths(paths), n, *ptrs, width, height,
+                                  level, status)
+        for st, p in zip(status, paths):
+            if st != 0:
+                raise OSError(_encode_err(st, p))
+
+    def encode_batch(self, paths, data: np.ndarray, compression_level: int = 6) -> None:
+        """Encode (N, h, w, 3) uint8 frames to N PNG files."""
+        data = np.ascontiguousarray(data, np.uint8)
+        if data.ndim != 4 or data.shape[-1] != 3 or data.shape[0] != len(paths):
+            raise ValueError(f"expected (N, h, w, 3) uint8 with N = {len(paths)} paths, "
+                             f"got {data.shape}")
+        _, h, w, _ = data.shape
+        self._encode("vkr_pool_encode_batch", paths, [data], None, w, h, compression_level,
+                     lambda p, f: write_png(p, f, compression_level))
+
+    def encode_batch_planar(self, paths, data: np.ndarray, compression_level: int = 6) -> None:
+        """Encode planar (N, 3, H, W) uint8 frames, the woven routes'
+        device layout; the native encoder interleaves the channels in its
+        row loop."""
+        (data,) = _batch_planes([data], len(paths), 1, "planar frames")
+        _, _, h, w = data.shape
+        self._encode("vkr_pool_encode_batch_planar", paths, [data], None, w, h,
+                     compression_level, lambda p, f: write_png_planar(p, f, compression_level))
+
+    def encode_batch_planar_parity(self, paths, e: np.ndarray, d: np.ndarray,
+                                   compression_level: int = 6) -> None:
+        """Encode rows-parity frames: e and d each (N, 3, H/2, W) uint8,
+        the even and odd output rows."""
+        e, d = _batch_planes([e, d], len(paths), 2, "rows-parity planes e and d")
+        _, _, h2, w = e.shape
+        self._encode("vkr_pool_encode_batch_planar_parity", paths, [e, d], None, w, 2 * h2,
+                     compression_level,
+                     lambda p, fe, fd: write_png_planar_parity(p, fe, fd, compression_level))
+
+    def encode_batch_planar_parity4(self, paths, planes, compression_level: int = 6) -> None:
+        """Encode quad-parity frames: four (N, 3, H/2, W/2) uint8 planes
+        p[row parity][col parity]."""
+        ps = _batch_planes(planes, len(paths), 4, "quad-parity planes")
+        _, _, h2, wh = ps[0].shape
+        self._encode("vkr_pool_encode_batch_planar_parity4", paths, ps, None, 2 * wh, 2 * h2,
+                     compression_level,
+                     lambda p, *f: write_png_planar_parity4(p, f, compression_level))
+
+    def encode_batch_planar_grid(self, paths, planes, u: int,
+                                 compression_level: int = 6) -> None:
+        """Encode grid-parity frames: u*u (N, 3, H/u, W/u) uint8 planes,
+        row-major (ry, rx)."""
+        ps = _batch_planes(planes, len(paths), u * u, "grid-parity planes")
+        _, _, h, w = ps[0].shape
+        self._encode("vkr_pool_encode_batch_planar_grid", paths, ps, u, u * w, u * h,
+                     compression_level,
+                     lambda p, *f: write_png_planar_grid(p, f, u, compression_level))

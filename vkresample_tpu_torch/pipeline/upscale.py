@@ -1,5 +1,5 @@
-"""Single-image upscale pipeline: uint8 image in, uint8 planes or image out
-(counterpart of vkresample_tpu/pipeline/upscale.py).
+"""Upscale pipeline: uint8 image (or a batch of frames) in, uint8 planes or
+image out (counterpart of vkresample_tpu/pipeline/upscale.py).
 
 The port runs the small dense tier (every axis <= DENSE_MAX) with CAS
 sharpen, R2C and c2c, in fp32 (-p 0) or half storage (-p 2), on two
@@ -27,6 +27,10 @@ the stored planes; the chains keep float32 (the JAX generic branch has no
 storage codec).  The XLA engine (-engine xla, the reference tier) runs
 torch.fft on the materialized big spectrum -> K3.  fp64 and axes over
 DENSE_MAX raise NotImplementedError naming their ROADMAP.md item.
+
+Every route takes leading frame dims: N frames in one call run each GEMM
+once on the batch and each CAS kernel once on N*C planes
+(pipeline/batched.py).
 
 Every entry point runs on the current CUDA device unless the caller names
 another (``device="cpu"`` runs the kernels' plain versions); without a
@@ -184,10 +188,12 @@ def make_device_banks(plan: UpscalePlan, engine: Engine, device, planes_out: boo
 
 def _pipeline(img_u8: torch.Tensor, banks, plan: UpscalePlan, engine: Engine,
               planes_out: bool, planar_out: bool):
-    """(h, w, C) uint8 on the device -> the parity planes of
-    planes_format(plan) (planes_out), or the woven (H, W, C) uint8 image
-    ((C, H, W) when planar_out)."""
-    x_raw = img_u8.permute(2, 0, 1).contiguous()  # planar (C, h, w), like the reference
+    """(..., h, w, C) uint8 on the device -> the parity planes of
+    planes_format(plan) (planes_out), or the woven (..., H, W, C) uint8
+    image ((..., C, H, W) when planar_out).  Leading dims are frames: every
+    transform broadcasts over them and every CAS kernel folds them into its
+    plane count, so a batch of N frames runs each kernel once."""
+    x_raw = img_u8.movedim(-1, -3).contiguous()  # planar (..., C, h, w), like the reference
     codec = (
         dict(store=cas_ops.to_i16_storage, load=cas_ops.from_i16_storage)
         if plan.precision is Precision.HALF
@@ -223,7 +229,12 @@ def _pipeline(img_u8: torch.Tensor, banks, plan: UpscalePlan, engine: Engine,
     else:
         x = cas_ops.normalize_u8(x_raw)
         out = cas_quantize(_precas(x, plan, engine, banks), plan.sharpen)
-    return out if planar_out else out.permute(1, 2, 0).contiguous()
+    return out if planar_out else out.movedim(-3, -1).contiguous()
+
+
+# the CAS kernels launch one block row per plane on grid.z (csrc/cas_grid.cu,
+# csrc/cas_rows.cu), so frames x channels of one call may not pass this
+MAX_PLANES = 65535
 
 
 @functools.lru_cache(maxsize=16)
@@ -244,8 +255,14 @@ def _build(plan: UpscalePlan, device: torch.device, planes_out: bool,
                 raise TypeError(f"expected uint8 image, got {img.dtype}")
             if img.dim() == 2:
                 img = img[:, :, None]
-            if tuple(img.shape[:2]) != (plan.h, plan.w):
+            if img.dim() < 3 or tuple(img.shape[-3:-1]) != (plan.h, plan.w):
                 raise ValueError(f"image {tuple(img.shape)} does not match plan {plan}")
+            planes = img[..., 0, 0, :].numel()
+            if planes > MAX_PLANES:
+                raise ValueError(
+                    f"{planes} planes (frames x channels) in one call; the CAS kernels "
+                    f"take at most {MAX_PLANES} ({MAX_PLANES // img.shape[-1]} frames "
+                    f"of {img.shape[-1]} channels)")
             return _pipeline(img.to(device), banks, plan, engine, planes_out, planar_out)
 
     return fn
@@ -260,7 +277,9 @@ def build_upscale(plan: UpscalePlan, device=None, planes_out: bool = False,
     maps an (h, w, C) uint8 image to the uint8 parity planes of
     planes_format(plan) (planes_out; ValueError when the plan has none), or
     to the woven (H, W, C) uint8 image ((C, H, W) when planar_out), on
-    `device`.
+    `device`.  It also takes leading frame dims, (..., h, w, C) ->
+    (..., C, H/2, W/2) quad planes and so on (pipeline/batched.py), up to
+    MAX_PLANES frames x channels a call.
 
     device: a torch device (default: the current CUDA device; RuntimeError
     when there is none; "cpu" runs the kernels' plain versions)."""
