@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Drives the port's routes (vkresample_tpu_torch: R2C and c2c upscale with
-CAS sharpen, half storage -p 2 and fp32 -p 0) on the card at full frame
-sizes, and fails (non-zero exit, no result line) unless every phase passes:
+CAS sharpen, half storage -p 2, fp32 -p 0 and fp64 -p 1, the small dense
+tier and the big tier beyond it) on the card at full frame sizes, and fails
+(non-zero exit, no result line) unless every phase passes:
 
   1. device   a CUDA device is present; prints its name and power limit
   2. build    builds the CUDA kernels from vkresample_tpu_torch/csrc/
@@ -44,7 +45,13 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
               f32 only, at (3, 2048, 4096), (3, 2160, 3840) and (2, 37,
               201), K10b at bh 128, 64, 32 and 1, K10c also at odd and
               misaligned images, identical on every pixel to their plain
-              version
+              version; then the big tier's shapes, int16 and f32: K1 at 4 x
+              (3, 4096, 8192) (the staged quad and the c2c grid u=2 at 8K
+              -> 16K), 4 x (3, 4320, 8640) and 4 x (3, 8192, 16384), K4 at
+              9 x (3, 2160, 3840), K3 at (3, 8192, 16384), identical on
+              every pixel to their plain versions run in row bands with a
+              one-row halo (the whole image's output in bounded memory),
+              compared on the card, each timed (10 wrapper calls)
   4. routes   each route through the entry point a user calls
               (build_upscale(plan, planes_out=True) as the CLI does, or
               upscale()) against the fp64 oracle (<= 1 LSB); every
@@ -126,6 +133,32 @@ sizes, and fails (non-zero exit, no result line) unless every phase passes:
               the CLI's frames/s on 24 frames, and the zlib reader's decode
               of one Paeth-filtered 2048x1024 frame with the C and the Python
               row filters
+
+  8. big     the big tier (axes beyond the 8192 dense cap) and fp64
+              (-p 1) through the user's entry points, 3 seeded channels:
+                staged quad   8192x4096 -> 16384x8192, -p 2 and -p 0
+                              (planes), -p 2 woven upscale()           K1
+                staged quad   8640x4320 -> 17280x8640, -p 2 (a width 128
+                              does not divide)                          K1
+                big grid u=3  3840x2160 -> 11520x6480, -p 2             K4
+                big c2c u=2   8192x4096 -> 16384x8192, -p 2             K1
+                xla           -engine xla 8192x4096 -> 16384x8192, -p 0 K3
+                fp64          2048x1024 u=2 (staged64), 1280x720 u=3
+                              (grid64) and -c2c (c2cgrid64), and the
+                              8192x4096 u=2 frame                       none
+                capacity      16384x8192 -> 32768x16384, -engine xla -p 0
+                              (K3), then the staged quad -p 2 (K1), once
+              each within 1 LSB of the fp64 oracle (computed in worker
+              processes beside phases 3-5), the capacity quad within 1
+              LSB of the reference tier's output on the card (a numpy
+              oracle at that size takes minutes); every kernel's counter is
+              set to 0 before each run and read after it, > 0 exactly for
+              the run's kernels (none for fp64); for each run ms/frame (-n
+              3 after a warm-up, CUDA events; the capacity frames -n 1), the
+              peak device memory, and the bank build time cold
+              and from the disk cache (a cache of the run's own, under
+              vkresample_tpu_torch/build/smoke); then the CLI at 4320x512
+              -> 8640x1024 with -validate, -p 2 and -p 1
 
 The line before the card's line lists each kernel with its launches over
 the routes and runs, its worst difference, its time, its plain version's
@@ -629,8 +662,190 @@ def batched_phase(dev, card, kernels, oracles, image, zero_counters):
 
 
 
-def main() -> int:
+# the big tier's kernel shapes (phase 3): K1 at the staged quad's 8K -> 16K
+# (and the c2c grid's u=2 at the same frame), the non-aligned 8640 and the
+# 16K -> 32K capacity frame; K4 at the u=3 big grid 3840x2160 -> 11520x6480;
+# K3 at the reference tier's 8K -> 16K woven image
+BIG_KERNEL_CASES = [
+    ("K1", (C, 4096, 8192)), ("K1", (C, 4320, 8640)), ("K1", (C, 8192, 16384)),
+    ("K4", ((C, 2160, 3840), 3)), ("K3", (C, 8192, 16384)),
+]
+
+# big-tier and fp64 run -> ((h, w), upscale, precision, engine, r2c, entry,
+# kernels it runs): 3 seeded channels at full width, each through the entry
+# point a user calls
+BIG = {
+    "staged quad -p 2": ((4096, 8192), 2.0, "HALF", "AUTO", True, "planes", {"K1"}),
+    "staged quad -p 0": ((4096, 8192), 2.0, "SINGLE", "AUTO", True, "planes", {"K1"}),
+    "staged quad woven upscale() -p 2": ((4096, 8192), 2.0, "HALF", "AUTO", True, "woven",
+                                         {"K1"}),
+    "staged quad 8640 -p 2": ((4320, 8640), 2.0, "HALF", "AUTO", True, "planes", {"K1"}),
+    "big grid u=3 -p 2": ((2160, 3840), 3.0, "HALF", "AUTO", True, "planes", {"K4"}),
+    "big c2c u=2 -p 2": ((4096, 8192), 2.0, "HALF", "AUTO", False, "planes", {"K1"}),
+    "xla -p 0": ((4096, 8192), 2.0, "SINGLE", "XLA", True, "woven", {"K3"}),
+    "fp64 staged64": ((1024, 2048), 2.0, "DOUBLE", "AUTO", True, "woven", set()),
+    "fp64 grid64": ((720, 1280), 3.0, "DOUBLE", "AUTO", True, "woven", set()),
+    "fp64 c2cgrid64": ((720, 1280), 3.0, "DOUBLE", "AUTO", False, "woven", set()),
+    "fp64 8K": ((4096, 8192), 2.0, "DOUBLE", "AUTO", True, "woven", set()),
+    "capacity xla -p 0": ((8192, 16384), 2.0, "SINGLE", "XLA", True, "woven", {"K3"}),
+    "capacity staged quad -p 2": ((8192, 16384), 2.0, "HALF", "AUTO", True, "planes", {"K1"}),
+}
+# the big frames' fp64 oracles, computed in worker processes beside phases
+# 3-5 (each takes 40-105 s of numpy on the card machine); the capacity frame
+# is held against the reference tier on the card instead (its oracle takes
+# minutes)
+BIG_ORACLES = [(4096, 8192, 2.0, True), (4320, 8640, 2.0, True), (2160, 3840, 3.0, True),
+               (4096, 8192, 2.0, False)]
+ORACLE_WORKERS = 4
+BIG_CLI_FRAME = (512, 4320)  # -u 2 -> 1024x8640: just over the cap, not 128-aligned
+
+
+def seeded_image(h: int, w: int):
+    """The smoke run's seeded (h, w, C) uint8 frame."""
+    import numpy as np
+
+    return np.random.default_rng(SEED + h + w).integers(0, 256, (h, w, C), np.uint8)
+
+
+def oracle_job(h: int, w: int, u: float, r2c: bool):
+    """The fp64 oracle of a seeded frame, in a worker process."""
     sys.path.insert(0, ROOT)
+    from vkresample_tpu_torch.core.plan import UpscalePlan
+    from vkresample_tpu_torch.oracle.numpy_ref import upscale_oracle
+
+    t0 = time.perf_counter()
+    out = upscale_oracle(seeded_image(h, w), UpscalePlan(h=h, w=w, upscale=u, r2c=r2c))
+    return out, time.perf_counter() - t0
+
+
+def dev_diff(got, want):
+    """(max |diff|, share identical) of matching uint8 tensors on the card."""
+    import torch
+
+    d = max(int((g.to(torch.int16) - w.to(torch.int16)).abs().max()) for g, w in zip(got, want))
+    same = sum(int((g == w).sum()) for g, w in zip(got, want)) / sum(g.numel() for g in got)
+    return d, same
+
+
+def big_phase(dev, card, oracles, launches_of, zero_counters):
+    """Phase 8: the big tier (axes beyond the 8192 dense cap) and fp64
+    through the user's entry points; for each run ms/frame, peak device
+    memory, the launches of each kernel and the bank build time, cold and
+    from the disk cache; each against the fp64 oracle (`oracles`, the big
+    frames' among them)."""
+    import shutil
+
+    import torch
+
+    from vkresample_tpu_torch import Engine, Precision, UpscalePlan, build_upscale, upscale
+    from vkresample_tpu_torch.core import bankcache
+    from vkresample_tpu_torch.fft import mxu_pipeline
+    from vkresample_tpu_torch.io.png import write_png
+    from vkresample_tpu_torch.ops.weave import weave_grid_u8
+    from vkresample_tpu_torch.pipeline.timing import time_amortized
+    from vkresample_tpu_torch.pipeline.upscale import planes_format, route_engine
+
+    # a bank cache of the smoke run's own, empty, so the cold builds are cold
+    cache = os.path.join(ROOT, "vkresample_tpu_torch", "build", "smoke", "bankcache")
+    shutil.rmtree(cache, ignore_errors=True)
+    os.environ["VKRESAMPLE_CACHE_DIR"] = cache
+    gb = 1024 ** 3
+    outs = {}
+    for run, ((h, w), u, prec, engine, r2c, entry, runs) in BIG.items():
+        plan = UpscalePlan(h=h, w=w, upscale=u, precision=Precision[prec], r2c=r2c,
+                           engine=Engine[engine])
+        img = seeded_image(h, w)
+        x = torch.from_numpy(img).to(dev)
+        banks = "no banks (reference tier)"
+        if route_engine(plan) is Engine.MXU:
+            t0 = time.perf_counter()
+            mxu_pipeline.make_dense_banks(plan)
+            cold = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mxu_pipeline.make_dense_banks(plan)
+            again = ("from the disk cache" if max(h, w, plan.H, plan.W) >= bankcache.MIN_CACHED_DIM
+                     else "built again (below the cache's size gate)")
+            banks = (f"bank set {mxu_pipeline.bank_set(plan)} built in {cold:.3f} s cold, "
+                     f"{time.perf_counter() - t0:.3f} s {again}")
+        fmt = planes_format(plan) if entry == "planes" else None
+        require(entry == "woven" or fmt is not None, f"{run}: no parity planes")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        zero_counters()
+        t0 = time.perf_counter()
+        if entry == "planes":
+            fn = build_upscale(plan, dev, planes_out=True)
+            out = fn(x)
+        else:
+            out = upscale(x, u, plan=plan, device=dev)
+            fn = build_upscale(plan, dev)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        counts = launches_of(run, runs)
+        n = 1 if run.startswith("capacity") else 3
+        _, ms = time_amortized(fn, (x,), n, dev)
+        timing = f"{ms:.4f} ms/frame (-n {n} after a warm-up, CUDA events)"
+        got = (weave_grid_u8(out, int(round(len(out) ** 0.5))).movedim(-3, -1)
+               if fmt else out)
+        require(tuple(got.shape) == (plan.H, plan.W, C) and got.dtype == torch.uint8,
+                f"{run}: bad output {tuple(got.shape)} {got.dtype}")
+        if run == "capacity staged quad -p 2":
+            against, want = "the reference tier on the card", outs.pop("capacity xla -p 0")
+        elif run == "capacity xla -p 0":
+            outs[run] = got
+            against, want = None, None
+        else:
+            against = "the fp64 oracle"
+            want = torch.from_numpy(oracles[(h, w, u, r2c)]).to(dev)
+        vs = ""
+        if want is not None:
+            d, same = dev_diff([got], [want])
+            vs = f"; max|diff| vs {against} {d} LSB, identical {same:.6f}"
+            require(d <= TOL_LSB, f"{run} is {d} LSB from {against}")
+        print(f"[8 big] {run} ({fmt or 'woven'}): {w}x{h} -> {plan.W}x{plan.H}: {timing}; "
+              f"first frame {first:.3f} s; peak device memory {peak / gb:.3f} GB "
+              f"({(peak - held) / gb:.3f} GB above the {held / gb:.3f} GB held); {banks}; "
+              f"launches {counts}{vs} on {card}")
+        del out, got, want, fn, x
+
+    # the CLI at a frame just over the cap, -validate, -p 2 and -p 1
+    h, w = BIG_CLI_FRAME
+    src = os.path.join(ROOT, "vkresample_tpu_torch", "build", "smoke", f"big_{w}x{h}.png")
+    write_png(src, seeded_image(h, w))
+    for prec in ("2", "1"):
+        out = src.replace(".png", f"_p{prec}_out.png")
+        cmd = [sys.executable, "-m", "vkresample_tpu_torch", "-i", src, "-o", out, "-u", "2",
+               "-p", prec, "-validate"]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            print(f"[8 big] cli {w}x{h} -u 2 -p {prec}: {line}")
+        require(proc.returncode == 0 and "(tol 1) OK" in proc.stdout,
+                f"CLI {w}x{h} -p {prec} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    shutil.rmtree(cache, ignore_errors=True)
+    print(f"[8 big] bank cache {bankcache.cache_dir()} cleared")
+
+
+def main() -> int:
+    """Phases 1-8, with the big frames' oracles in worker processes that
+    are stopped before it returns or raises."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    sys.path.insert(0, ROOT)
+    import torch
+
+    require(torch.cuda.is_available(), "no CUDA device: the smoke run needs one GPU")
+    pool = ProcessPoolExecutor(ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return run(pool)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run(pool) -> int:
     import numpy as np
     import torch
 
@@ -958,6 +1173,9 @@ def main() -> int:
         f"{'compiled' if _build.last_build['compiled'] else 'found built'} "
         f"in {time.perf_counter() - t0:.3f} s (nvcc {_build.last_build['seconds']:.3f} s)"
     )
+    # the big frames' fp64 oracles (phase 8) run in worker processes beside
+    # phases 3-5; phase 6, the times, starts once they are done
+    big_jobs = {key: pool.submit(oracle_job, *key) for key in BIG_ORACLES}
 
     # 3. each kernel against its plain version at its routes' shapes
     for kid, k in kernels.items():
@@ -982,6 +1200,42 @@ def main() -> int:
                         f"{kid} disagrees with its plain version at {case}")
                 k["max_abs_err"] = max(k["max_abs_err"], d)
 
+    # 3, the big tier's shapes: K1, K4 and K3 where the staged routes and the
+    # reference tier above the cap give them planes 4-16x larger, against
+    # their plain versions run in row bands (one plane row of halo above and
+    # below, replicated only at the image's own edges: the whole image's
+    # output in bounded memory), compared on the card
+    def plain_banded(kid, args, rows=256):
+        planes = args[0] if kid == "K4" else args
+        h = planes[0].shape[-2]
+        outs = None
+        for r0 in range(0, h, rows):
+            r1 = min(r0 + rows, h)
+            a = max(r0 - 1, 0)
+            cut = [p[..., a:min(r1 + 1, h), :].contiguous() for p in planes]
+            res = call(kernels[kid], "plain", (cut, args[1]) if kid == "K4" else cut)
+            if outs is None:
+                outs = [torch.empty(p.shape, dtype=torch.uint8, device=dev) for p in planes[:len(res)]]
+            for o, r in zip(outs, res):
+                o[..., r0:r1, :] = r[..., r0 - a:r1 - a, :]
+        return tuple(outs)
+
+    for kid, case in BIG_KERNEL_CASES:
+        k = kernels[kid]
+        for dt in (torch.int16, torch.float32):
+            args = grid_args(case, dt) if kid == "K4" else image_args(case, dt, 4 if kid == "K1" else 1)
+            got = call(k, "fn", args)
+            d, same = dev_diff(got, plain_banded(kid, args))
+            ms = cuda_ms(lambda: call(k, "fn", args), 10)
+            bound_ms, bound_by = k["bound"](args)
+            print(f"[3 kernels] {kid} {k['name']} {case} {dt} (big tier): max|diff| {d} LSB, "
+                  f"identical {same:.6f}; kernel {ms:.4f} ms (10 wrapper calls, CUDA events), "
+                  f"bound {bound_ms:.4f} ms ({bound_by}) on {card}")
+            require(d == 0, f"{kid} differs from its plain version at {case}")
+            k["max_abs_err"] = max(k["max_abs_err"], d)
+            del args, got
+            torch.cuda.empty_cache()
+
     # 4. every route at full size, through the user's entry points
     oracles, imgs, fns, route_out = {}, {}, {}, {}
     for k in kernels.values():
@@ -1002,7 +1256,7 @@ def main() -> int:
 
     def image(h, w):
         if (h, w) not in imgs:
-            imgs[(h, w)] = np.random.default_rng(SEED + h + w).integers(0, 256, (h, w, C), np.uint8)
+            imgs[(h, w)] = seeded_image(h, w)
         return imgs[(h, w)]
 
     for route, ((h, w), u, prec, engine, r2c, entry, runs) in ROUTES.items():
@@ -1164,6 +1418,11 @@ def main() -> int:
         print(f"[5 cli] {label} vs {golden}: max|diff| {d} LSB")
         require(d <= TOL_LSB, f"CLI {label} differs from {golden}")
 
+    for (h, w, u, r2c), job in big_jobs.items():
+        oracles[(h, w, u, r2c)], secs = job.result()
+        print(f"[5 cli] fp64 oracle {w}x{h} x{u} {'r2c' if r2c else 'c2c'} for phase 8 in "
+              f"{secs:.3f} s (worker process, beside phases 3-5)")
+
     # 6. times, on this card
     for route, fn in fns.items():
         (h, w), u = ROUTES[route][:2]
@@ -1218,6 +1477,9 @@ def main() -> int:
 
     # 7. batched: frames folded into the kernels' plane axis, the folder CLI
     batched_phase(dev, card, kernels, oracles, image, zero_counters)
+
+    # 8. the big tier and fp64
+    big_phase(dev, card, oracles, launches_of, zero_counters)
 
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda"} | {key: k[key] for key in (

@@ -2,13 +2,16 @@
 
     python3 scripts/torch_route_profile.py                 # the c2c routes
     python3 scripts/torch_route_profile.py all             # every route and run
+    python3 scripts/torch_route_profile.py big             # the big tier and fp64 runs
     python3 scripts/torch_route_profile.py "quad -p 2" ...  # named routes or runs
 
 The routes, the fused-y runs, the woven-CAS A/B runs ("cas ab K3", "cas ab
 K6 bh=64" ..., "cas ab K7 bh=128") and the CAS-split runs ("cas split
 K10a", "cas split K10b bh=64", "cas split K10b bh=128", "cas split K10c")
-are chip_smoke.py's ROUTES, FUSED, CAS_AB and CAS_SPLIT (full frame sizes,
-3 channels, a seeded random frame already on the device); the batched runs
+are chip_smoke.py's ROUTES, FUSED, CAS_AB and CAS_SPLIT, and the big tier
+and fp64 runs its BIG ("staged quad -p 2", ..., "fp64 8K", "capacity staged
+quad -p 2"; full frame sizes, 3 channels, a seeded random frame already on
+the device; bank sets from the disk bank cache); the batched runs
 ("batched quad -p 2 N=1", "N=4", "N=8") put N such frames through one call
 of build_batched_upscale, as the folder CLI does, and every number of theirs
 is per frame (per call / N).  Every frame
@@ -79,7 +82,7 @@ BATCHED_RUNS = {f"batched quad -p 2 N={n}": n for n in (1, 4, 8)}
 def route_fn(name, dev):
     """(plan, frame function, frames per call) of a chip_smoke route,
     fused-y, A/B or batched run."""
-    from chip_smoke import (CAS_AB, CAS_AB_FRAME, CAS_SPLIT, FUSED, ROUTES, cas_ab_fn,
+    from chip_smoke import (BIG, CAS_AB, CAS_AB_FRAME, CAS_SPLIT, FUSED, ROUTES, cas_ab_fn,
                             cas_split_fn, fused_y_fn)
 
     from vkresample_tpu_torch import (Engine, Precision, UpscalePlan, build_batched_upscale,
@@ -100,7 +103,7 @@ def route_fn(name, dev):
         (h, w), prec, kid, _ = FUSED[name]
         plan = UpscalePlan(h=h, w=w, upscale=2.0, precision=Precision[prec])
         return plan, fused_y_fn(plan, dev, kid), None
-    (h, w), u, prec, engine, r2c, entry, _ = ROUTES[name]
+    (h, w), u, prec, engine, r2c, entry, _ = BIG[name] if name in BIG else ROUTES[name]
     plan = UpscalePlan(h=h, w=w, upscale=u, precision=Precision[prec], r2c=r2c,
                        engine=Engine[engine])
     return plan, build_upscale(plan, dev, planes_out=entry == "planes"), None
@@ -155,11 +158,12 @@ def main(argv) -> int:
         print("no CUDA device: this profile needs one GPU")
         return 1
     sys.path.insert(0, ROOT)
-    from chip_smoke import CAS_AB, CAS_SPLIT, FUSED, ROUTES
+    from chip_smoke import BIG, CAS_AB, CAS_SPLIT, FUSED, ROUTES
 
     names = ([n for n in ROUTES if "c2c" in n] if not argv
              else list(ROUTES) + list(FUSED) + list(CAS_AB) + list(CAS_SPLIT)
-             + list(BATCHED_RUNS) if argv == ["all"]
+             + list(BATCHED_RUNS) + list(BIG) if argv == ["all"]
+             else list(BIG) if argv == ["big"]
              else argv)
     card = _card()
     print(f"{card}  torch {torch.__version__} cuda {torch.version.cuda}")

@@ -224,12 +224,13 @@ def test_c2c_route_matches_jax_upscale(h, w, u, engine, route, prec):
 def test_c2c_routing_matches_jax(monkeypatch):
     """c2c_grid_selected and planes_format against JAX's over a sweep of
     geometries (the chip routes' frames among them).  JAX's planes_format is
-    None off a TPU, so its Pallas gate is opened for the comparison; plans
-    the port does not run yet are left out of that half."""
+    None off a TPU, so its Pallas gate is opened for the comparison as on
+    its chip, where fp64 stays off the kernels."""
     from vkresample_tpu.fft import mxu_pipeline as jmxu
     from vkresample_tpu.pipeline import upscale as jpipe
 
-    monkeypatch.setattr(jpipe, "_use_pallas_cas", lambda plan: True)
+    monkeypatch.setattr(jpipe, "_use_pallas_cas",
+                        lambda plan: plan.precision is not JPrecision.DOUBLE)
     n = 0
     for h, w in [(1024, 2048), (720, 1280), (540, 960), (400, 600), (1080, 1920), (64, 96),
                  (45, 63), (36, 50), (30, 42), (2, 2), (4096, 4100), (128, 256)]:
@@ -243,10 +244,9 @@ def test_c2c_routing_matches_jax(monkeypatch):
                     plan = UpscalePlan(h=h, w=w, upscale=u, r2c=r2c, precision=prec)
                     assert (mxu_pipeline.c2c_grid_selected(plan)
                             == jmxu.c2c_grid_selected(jplan)), (h, w, u, r2c, prec)
-                    if tpipe.unsupported_reason(plan) is None:
-                        assert tpipe.planes_format(plan) == jpipe.planes_format(jplan), (
-                            h, w, u, r2c, prec)
-                        n += 1
+                    assert tpipe.planes_format(plan) == jpipe.planes_format(jplan), (
+                        h, w, u, r2c, prec)
+                    n += 1
     assert n > 150
     for h, w, u, want in [(1024, 2048, 2.0, "grid"), (720, 1280, 3.0, "grid"),
                           (720, 1280, 1.5, "grid"), (540, 960, 4.0, "grid"),

@@ -260,17 +260,49 @@ def test_routing_matches_jax():
     assert n > 80
 
 
-def test_unported_plans_name_their_item():
-    for kw, item in [
-        (dict(h=30, w=42, upscale=1.5, precision=Precision.DOUBLE), "item 2"),
-        (dict(h=30, w=42, upscale=3.0, r2c=False, precision=Precision.DOUBLE), "item 2"),
-        (dict(h=3000, w=3000, upscale=3.0), "item 5"),
-        (dict(h=4096, w=4096, upscale=2.5, engine=Engine.XLA), "item 5"),
+def test_unported_plans_name_their_item(tmp_path, monkeypatch):
+    """The plans that once raised naming their ROADMAP.md item (fp64 and
+    axes over the dense cap) build and route as JAX's do: the same
+    planes_format (JAX's Pallas gate opened, as on its chip) and the same
+    bank set or tier.  The 9000^2 and 10240^2 outputs are checked at build
+    time only; the thin over-cap plans of test_torch_bigtier.py run in
+    full.  A big fraction that no staged grid takes raises JAX's
+    ValueError in both packages."""
+    from vkresample_tpu.fft import mxu_pipeline as jmxu
+    from vkresample_tpu.pipeline import upscale as jpipe
+
+    monkeypatch.setenv("VKRESAMPLE_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(jpipe, "_use_pallas_cas", lambda plan: True)
+    keys = ("stx_b1", "sgx1_b1", "cg_ay", "Ymat_ns", "Ymat", "Xr")
+    for kw, fmt, tag in [
+        (dict(h=30, w=42, upscale=1.5, precision=Precision.DOUBLE), None, "chain"),
+        (dict(h=30, w=42, upscale=3.0, r2c=False, precision=Precision.DOUBLE), None, "c2c"),
+        (dict(h=3000, w=3000, upscale=3.0), "grid", "grid"),
+        (dict(h=4096, w=4096, upscale=2.5, engine=Engine.XLA), None, None),
     ]:
         plan = UpscalePlan(**kw)
-        assert tpipe.planes_format(plan) is None
-        with pytest.raises(NotImplementedError, match=item):
-            build_upscale(plan, "cpu")
+        jkw = dict(kw, precision=JPrecision(int(kw.get("precision", 0))),
+                   engine=JEngine(kw.get("engine", Engine.AUTO).value))
+        jplan = JPlan(**jkw)
+        assert tpipe.planes_format(plan) == jpipe.planes_format(jplan) == fmt, kw
+        engine = tpipe.route_engine(plan)
+        assert engine.value == jplan.resolve_engine().value, kw
+        if engine is Engine.MXU:
+            assert mxu_pipeline.bank_set(plan) == tag, kw
+            tb = mxu_pipeline.make_dense_banks(plan)
+            jb = jmxu.make_dense_banks(jplan, "float64" if "precision" in kw else "float32")
+            assert [k in tb for k in keys] == [k in jb for k in keys], kw
+        assert callable(build_upscale(plan, "cpu"))
+    plan = UpscalePlan(h=6144, w=6144, upscale=1.6666667)
+    jplan = JPlan(h=6144, w=6144, upscale=1.6666667)
+    assert plan.mxu_mode == jplan.mxu_mode == "big"
+    assert mxu_pipeline.make_dense_banks(plan) is None and jmxu.make_dense_banks(jplan) is None
+    assert tpipe.planes_format(plan) is None
+    with pytest.raises(ValueError, match="staged fractional grid"):
+        build_upscale(plan, "cpu")
+    with pytest.raises(ValueError, match="staged fractional grid"):
+        jax.eval_shape(lambda x: jmxu.upscale_precas_mxu(x, jplan),
+                       jax.ShapeDtypeStruct((3, 6144, 6144), jnp.float32))
 
 
 # ---------------------------------------------------------------------------

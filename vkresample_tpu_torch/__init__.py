@@ -5,16 +5,18 @@ The JAX package ``vkresample_tpu`` stays beside it as the reference.  This
 package imports torch and numpy only, never jax or vkresample_tpu, and
 builds its CUDA kernels (csrc/) with nvcc at first launch, never at import.
 
-Ported: the R2C and c2c upscale with CAS sharpen in fp32 (-p 0) and half
-storage (-p 2) for every factor (integer and fractional) with every axis
-<= 8192, on the GEMM engine (R2C: quad and rows parity routes at u=2, the
-rows route at integer u >= 3, the dense chain otherwise; c2c: the staged
-grid at p <= 4 phases, the dense c2c chain otherwise) and on the torch.fft
+Ported: the R2C and c2c upscale with CAS sharpen in fp32 (-p 0), half
+storage (-p 2) and fp64 (-p 1) for every factor (integer and fractional)
+at any size, on the GEMM engine (below the 8192 dense cap: R2C quad and
+rows parity routes at u=2, the rows route at integer u >= 3, the dense
+chain otherwise; c2c: the staged grid at p <= 4 phases, the dense c2c
+chain otherwise; above it the staged circulant forms: the R2C u=2 quad,
+the R2C grid at u >= 3 and p/q, the c2c grid) and on the torch.fft
 reference tier (-engine xla), one frame or a batch of frames a call, and
 the batched-folder CLI mode (-ifolder -ofolder -numfiles -numthreads
--batch -resume) with its PNG worker pool.  fp64 and larger axes raise
-NotImplementedError naming their ROADMAP.md item.  The entry points run
-on the current CUDA device unless the caller passes device="cpu".
+-batch -resume) with its PNG worker pool.  Staged bank sets are cached on
+disk (core/bankcache.py).  The entry points run on the current CUDA device
+unless the caller passes device="cpu".
 
 Public API:
     upscale(img, upscale, precision=..., sharpen=..., r2c=..., engine=..., device=...) -> (H, W, C) uint8

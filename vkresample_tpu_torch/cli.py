@@ -29,7 +29,7 @@ Works with png images only, for now!
 	-devices: print the list of available CUDA devices
 	-d X: select device (default 0)
 	-u X: specify upscale factor (float, default 1; output dims must be 7-smooth for the mxu engine)
-	-p X: specify precision (0 - single, 2 - half; 1 - double is not ported yet; default - single)
+	-p X: specify precision (0 - single, 1 - double, 2 - half, default - single)
 	-s X: specify sharpening factor, range 0.0-0.2 (default 0.2)
 	-n X: specify how many times to perform upscale. This removes dispatch overhead and will show the real application performance (default 1)
 Single image mode:

@@ -17,7 +17,9 @@ from .config import Engine, Precision
 from .smooth import is_7smooth
 
 # largest axis length the dense engine builds a DFT matrix for
-# (vkresample_tpu/fft/mxu_pipeline.py DENSE_MAX)
+# (vkresample_tpu/fft/mxu_pipeline.py DENSE_MAX).  Every route decision reads
+# it here, at call time, through UpscalePlan.above_dense_cap, so a test may
+# lower it on this one module to run the big tiers at small shapes.
 DENSE_MAX = 8192
 
 
@@ -166,12 +168,18 @@ class UpscalePlan:
         return self.W - self.x_right
 
     @property
+    def above_dense_cap(self) -> bool:
+        """True when some axis, input or output, passes DENSE_MAX (read at
+        call time): the plan is in the big tiers."""
+        return max(self.h, self.w, self.H, self.W) > DENSE_MAX
+
+    @property
     def mxu_mode(self) -> Optional[str]:
         """How the dense-GEMM tier would execute this plan: 'dense' (every
         axis <= DENSE_MAX), 'phases' (larger, integer factor), 'big'
         (larger, fractional factor) or None (not executable: large
         non-7-smooth dims or odd sizes the row-pair packing rejects)."""
-        if max(self.h, self.w, self.H, self.W) <= DENSE_MAX:
+        if not self.above_dense_cap:
             return "dense"
         smooth = (
             is_7smooth(self.h)

@@ -1,25 +1,41 @@
-"""Staged circulant-convolution transform, c2c grid subset (counterpart of
-vkresample_tpu/fft/staged.py).
+"""Staged circulant-convolution transform: the big-tier any-size engine
+(counterpart of vkresample_tpu/fft/staged.py).
 
-The c2c zero-pad upscale by u = p/q keeps every spectrum bin on both axes,
-so output pixel (p*m + ry, p*n + rx) is a pair of circular convolutions of
-the input, one per axis, sampled at stride q (docs/MATH.md §9-11).  Each
-length-n convolution runs as a two-level Cooley-Tukey factorization
-n = n1*n2 in THREE small contractions, with the twiddles and the kernel's
-eigenvalues folded into the middle stage's per-k2 banks:
+The zero-pad upscale by u = p/q restricted to the output lattice
+(p*m + ry, p*n + rx) is a pair of real circular convolutions of the input,
+one per axis, sampled at stride q (docs/MATH.md §7-11).  Each length-n
+convolution runs as a two-level Cooley-Tukey factorization n = n1*n2 in
+THREE small contractions, with the twiddles and the kernel's eigenvalues
+folded into the middle stage's per-k2 banks:
 
   t = t1 + n1*t2,  k = k2 + n2*k1
   S1 (fwd DFT over t2):   Y[t1,k2]  = sum_t2  x[t1+n1*t2] W2[t2,k2]
   S2 (per-k2 n1 x n1):    Z[t1',k2] = sum_t1  M[k2][t1,t1'] Y[t1,k2]
   S3 (inv DFT over k2):   out[t1'+n1*t2'] = (1/n2) sum_k2 Z[t1',k2] e^{+2pi i t2' k2/n2}
 
+Bank bytes are O(n*n1) instead of the dense tier's O(n^2), so there is no
+size cap.  Three forms use it:
+
+  r2c_quad_staged   r2c u=2: the four quad-parity planes (K1 consumes them)
+  r2c_grid_staged   r2c integer u >= 2 or a fraction p/q: p^2 phase planes
+                    (K4 consumes them)
+  c2c_grid_staged   c2c integer u >= 2 or p/q: p^2 magnitude planes
+
+In each, the ry = 0 planes are the identity y roundtrip, the rx = 0 planes
+exact samples less a rank-1 x-Nyquist correction, and the relocated
+y-Nyquist bin leaves a rank-1 imaginary residue that a one-row colsum, a
+chi convolution and a DC-bin injection (ynyq_dc_or_post) carry.
+
 The complex stage arithmetic rides as an explicit size-2 axis in the
 banks, so each stage is one real einsum.  The banks are built in f64 numpy
-and the stages run as float32 ``torch.einsum`` (callers keep TF32 off,
-pipeline/upscale.py).  The JAX package runs them at bf16x3 on its matrix
-unit; on this card they are full fp32.  Its experimental intermediate
-codecs, the emit4d/factored layouts and the r2c staged tiers are not
-ported (ROADMAP.md modules item 8).
+and the stages run as ``torch.einsum`` in the banks' dtype: float32 (callers
+keep TF32 off, pipeline/upscale.py) or float64 for -p 1, where float64 banks
+give an fp64 transform with no other change.  The JAX package runs the f32
+stages at bf16x3 on its matrix unit; here they are full fp32.  Its TPU
+layout and A/B options change layout or speed on the TPU, never the result,
+and are not ported: the factored and rows4d layouts, the composition
+variants, the i16/bf16/bf16c intermediate codecs (and the banks' qb/dc0
+entries that serve them) and the staged precision knob.
 """
 from __future__ import annotations
 
@@ -32,6 +48,46 @@ import torch
 # ---------------------------------------------------------------------------
 # kernel columns and banks (f64 numpy)
 # ---------------------------------------------------------------------------
+
+
+def _odd_kernel(n: int, g: np.ndarray) -> np.ndarray:
+    """c[d] = (1/n) sum_k g[k] e^{i pi sigma(k) (2d+1) / n} for the
+    half-sample-offset (odd output) lattice, as one length-n ifft."""
+    return np.fft.ifft(g)
+
+
+def y_kernel(h: int, kept_lo: int, kept_hi: int):
+    """Odd-output-row y kernel c (real, (h,)) of the u=2 band and the
+    rank-1 relocated y-Nyquist imaginary residue a0, Iy_odd[t, s] = a0 *
+    (-1)^(s-t) (a0 == 0 when every kept bin is +/- paired)."""
+    j = np.arange(h)
+    sigma = np.where(j < kept_lo, j, j - h).astype(np.float64)
+    keep = (j < kept_lo) | (j >= h - kept_hi)
+    g = keep.astype(np.float64) * np.exp(1j * np.pi * sigma / h)
+    c = _odd_kernel(h, g)
+    im = np.imag(c)
+    a0 = float(im[0])
+    if np.abs(im - a0 * (-1.0) ** np.arange(h)).max() > 1e-12:
+        raise ValueError("y imaginary residue is not rank-1")
+    return np.real(c), a0
+
+
+def x_kernels(w: int, kept_lo: int):
+    """The three real x-axis kernels of the u=2 band (x-Nyquist dropped):
+    psi_o (odd output columns), chi_o and chi_e (the odd- and even-column
+    quadrature partners that couple to the y-Nyquist residue)."""
+    k = np.arange(w)
+    sigma = np.where(k < kept_lo, k, k - w).astype(np.float64)
+    keep = ((k < kept_lo) | (k > w - kept_lo)).astype(np.float64)
+    g_alpha = keep * np.exp(1j * np.pi * sigma / w)
+    g_beta = 1j * np.sign(sigma) * g_alpha
+    psi_o = _odd_kernel(w, g_alpha)
+    chi_o = _odd_kernel(w, g_beta)
+    chi_e = np.fft.ifft(1j * np.sign(sigma) * keep)  # even lattice: no half-sample phase
+    for v in (psi_o, chi_o, chi_e):
+        if np.abs(np.imag(v)).max() > 1e-12:
+            raise ValueError("x kernel not real - band not symmetric")
+    return np.real(psi_o), np.real(chi_o), np.real(chi_e)
 
 
 def phase_y_kernel(h: int, kept_lo: int, kept_hi: int, ry: int, u):
@@ -55,6 +111,30 @@ def phase_y_kernel(h: int, kept_lo: int, kept_hi: int, ry: int, u):
     if np.abs(im - a0 * (-1.0) ** np.arange(h)).max() > 1e-12:
         raise ValueError("y imaginary residue is not rank-1")
     return np.real(c), a0
+
+
+def phase_x_kernels(w: int, kept_lo: int, rx: int, u):
+    """Per-phase x kernels for factor u (int or Fraction p/q): output
+    columns p*m + rx, sampled at stride q.
+
+      psi_rx(d) = (1/w) sum_sym keep e^{2 pi i sigma (d + rx/u) / w}
+      chi_rx(d) = the same with i*sign(sigma) weights
+
+    Both are exactly real (symmetric band, Nyquist dropped); x_kernels is
+    the u=2 specialization (psi_1, chi_1, chi_0)."""
+    uf = Fraction(u)
+    p, q = uf.numerator, uf.denominator
+    k = np.arange(w)
+    sigma = np.where(k < kept_lo, k, k - w).astype(np.float64)
+    keep = ((k < kept_lo) | (k > w - kept_lo)).astype(np.float64)
+    g_alpha = keep * np.exp(2j * np.pi * sigma * (rx * q) / (p * w))
+    g_beta = 1j * np.sign(sigma) * g_alpha
+    psi = np.fft.ifft(g_alpha)
+    chi = np.fft.ifft(g_beta)
+    for v in (psi, chi):
+        if np.abs(np.imag(v)).max() > 1e-12:
+            raise ValueError("x kernel not real - band not symmetric")
+    return np.real(psi), np.real(chi)
 
 
 def split_factors(n: int, prefer: int = None, multiple_of: int = 1):
@@ -167,15 +247,21 @@ def conv_banks(kernel: np.ndarray, prefix: str, n1: int = None, dtype: str = "fl
 # ---------------------------------------------------------------------------
 
 
-def conv_apply_rows(x: torch.Tensor, banks: dict, prefix: str, load=None, epilogue=None):
+def conv_apply_rows(x: torch.Tensor, banks: dict, prefix: str, load=None, epilogue=None,
+                    dc_add=None):
     """Staged circular convolution over axis -2 of a real (..., n, L)
     tensor -> (..., n/q, L).
 
     load: storage decode applied after the row-split reshape (x arrives
     stored, e.g. int16 Q2.14).
+    dc_add: optional (..., nd, L) term injected into the DC bin's real part
+    between S2 and S3; since b3[0, 0, e] = 1/n2 for every e, that is a
+    broadcast add of dc_add[d, L] over the n2 output row groups, applied
+    after S3 (the rank-1 y-Nyquist correction, ynyq_dc_or_post).
     epilogue: elementwise function on the output's pre-flatten view
-    (..., e, d, L), e of size n2 and d of size nd, output row e*nd + d;
-    terms indexed by output row must be shaped (n2, nd, 1) by the caller."""
+    (..., e, d, L), e of size n2 and d of size nd, output row e*nd + d,
+    applied after dc_add; terms indexed by output row must be shaped (n2,
+    nd, 1) by the caller."""
     b1, mb, b3 = banks[prefix + "b1"], banks[prefix + "m"], banks[prefix + "b3"]
     n2, n1, nd = b1.shape[0], mb.shape[2], mb.shape[4]
     lead, L = x.shape[:-2], x.shape[-1]
@@ -185,6 +271,8 @@ def conv_apply_rows(x: torch.Tensor, banks: dict, prefix: str, load=None, epilog
     y = torch.einsum("ajc,...abL->...jcbL", b1, x)  # S1: (..., 2, k2h, n1, L)
     y = torch.einsum("cjbkd,...jcbL->...kcdL", mb, y)  # S2: (..., 2, k2h, nd, L)
     y = torch.einsum("kce,...kcdL->...edL", b3, y)  # S3: (..., n2, nd, L)
+    if dc_add is not None:
+        y = y + dc_add[..., None, :, :]
     if epilogue is not None:
         y = epilogue(y)
     return y.reshape(lead + (n2 * nd, L))
@@ -201,6 +289,255 @@ def conv_apply_lanes(x: torch.Tensor, banks: dict, prefix: str):
     y = torch.einsum("cjbkd,...jcb->...kcd", mb, y)
     y = torch.einsum("kce,...kcd->...ed", b3, y)
     return y.reshape(lead + (n2 * nd,))
+
+
+# ---------------------------------------------------------------------------
+# r2c: the rank-1 pieces shared by the quad and grid forms
+# ---------------------------------------------------------------------------
+
+
+def _xnyq_colsum(x_raw: torch.Tensor, xf: torch.Tensor) -> torch.Tensor:
+    """The signed row sums q = sum_j x[..., j] (-1)^j, (..., h, 1), of the
+    rank-1 x-Nyquist correction.  On a raw uint8 image they are summed in
+    integers, exactly (w*255 < 2^31), and rounded to the accumulation dtype
+    once; a float image sums in its own dtype."""
+    w = x_raw.shape[-1]
+    if x_raw.dtype == torch.uint8:
+        isign = _signs(w, 1, torch.int32, xf.device)
+        return (x_raw.to(torch.int32) * isign).sum(dim=-1, keepdim=True).to(xf.dtype)
+    return (xf * _signs(w, 1, xf.dtype, xf.device)).sum(dim=-1, keepdim=True)
+
+
+def ynyq_dc_or_post(yc, n1: int, nd: int, qd: int, h_out: int):
+    """Rank-1 relocated-y-Nyquist injection factors, the one place the
+    even/odd-n1 rule lives (r2c_quad_staged and r2c_grid_staged).
+
+    Returns (dc_factor, post_factor), exactly one not None; the caller
+    multiplies it by the chi-convolved correction row t.  Even n1 (= qd*nd):
+    the output-row sign (-1)^(qd*(d + nd*t2')) is (-1)^(qd*d), so the
+    correction injects into the DC bin of the small spectral intermediate
+    (conv_apply_rows' dc_add).  Odd n1: the sign depends on the outer row
+    index, so it is added afterwards over the h_out output rows."""
+    if n1 % 2 == 0:
+        return yc * _signs(nd, qd, yc.dtype, yc.device)[:, None], None
+    return None, yc * _signs(h_out, qd, yc.dtype, yc.device)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# r2c u=2 quad-parity form
+# ---------------------------------------------------------------------------
+
+
+def staged_supported(plan) -> bool:
+    """The staged quad form takes u=2 r2c plans with even dims and usable
+    Cooley-Tukey splits on both axes: any such size, 128-aligned or not."""
+    from .dense import r2c_rows_supported
+
+    return (
+        plan.r2c
+        and plan.integer_upscale == 2
+        and r2c_rows_supported(plan)
+        and plan.h % 2 == 0
+        and plan.w % 2 == 0
+        and split_factors(plan.h) is not None
+        and split_factors(plan.w) is not None
+    )
+
+
+def r2c_quad_staged_banks(plan, dtype: str = "float32") -> dict:
+    """Banks of the staged u=2 quad transform (detect: "stx_b1" present):
+    the x conv stx_ (psi_o, /255 folded in), the y conv sty_, and where the
+    band leaves a y-Nyquist residue (a0 != 0) its rank-1 pieces: st_y1n
+    ((-1)^t / 255, (h, 1)), st_yc (a0) and the chi convs stbo_ / stbe_.
+    dtype "float64" serves -p 1."""
+    if not staged_supported(plan):
+        raise ValueError(f"plan has no staged quad route: {plan}")
+    h, w = plan.h, plan.w
+    cy, a0 = y_kernel(h, plan.kept_lo_y, plan.kept_hi_y)
+    psi_o, chi_o, chi_e = x_kernels(w, plan.kept_lo_x)
+    banks = conv_banks(psi_o / 255.0, "stx_", dtype=dtype, prefer=x_split_prefer(n=w))
+    banks.update(conv_banks(cy, "sty_", dtype=dtype))
+    if a0 != 0.0:
+        banks["st_y1n"] = (((-1.0) ** np.arange(h))[:, None] / 255.0).astype(dtype)
+        banks["st_yc"] = np.asarray(a0, dtype)
+        # the correction convs see one row a plane: a small middle factor
+        banks.update(conv_banks(chi_o, "stbo_", dtype=dtype, prefer=16))
+        banks.update(conv_banks(chi_e, "stbe_", dtype=dtype, prefer=16))
+    return banks
+
+
+def r2c_quad_staged(x_raw: torch.Tensor, banks: dict, store=None, load=None):
+    """Quad-parity u=2 transform on staged convolutions, the contract of
+    dense.r2c_quad: x_raw (..., C, h, w) holds raw pixel values 0..255
+    (uint8, or float on the woven path); returns the four pre-CAS parity
+    planes P00, P01, P10, P11, each (..., C, h, w) in CAS units.
+
+      P00 = x/255 - rank-1 x-Nyquist correction (exact samples)
+      P01 = x (x) psi_o along the rows' columns (the x conv)
+      P10, P11 = the y conv of P00, P01 (+ the rank-1 y-Nyquist term)
+
+    store/load: optional pre-CAS storage codec (int16 Q2.14 in half mode):
+    P00 and P01 are stored once, the y convs decode them inside their
+    row-split view, and every returned plane is stored."""
+    h, w = x_raw.shape[-2:]
+    acc = banks["stx_b1"].dtype
+    xf = x_raw.to(acc)
+    P01 = conv_apply_lanes(xf, banks, "stx_")
+    q = _xnyq_colsum(x_raw, xf)
+    P00 = xf * (1.0 / 255.0) - (_signs(w, 1, acc, xf.device) * q) * (1.0 / (255.0 * w))
+    dc_e = dc_o = post = None
+    if "st_y1n" in banks:
+        tcorr = torch.matmul(banks["st_y1n"].transpose(0, 1), xf)  # (..., 1, w)
+        t2o = conv_apply_lanes(tcorr, banks, "stbo_")
+        t2e = conv_apply_lanes(tcorr, banks, "stbe_")
+        n1 = banks["sty_m"].shape[2]
+        dcf, post = ynyq_dc_or_post(banks["st_yc"], n1, n1, 1, h)
+        if dcf is not None:
+            dc_e, dc_o = dcf * t2e, dcf * t2o
+    if store is not None:
+        P00, P01 = store(P00), store(P01)
+    P10 = conv_apply_rows(P00, banks, "sty_", load=load, dc_add=dc_e)
+    P11 = conv_apply_rows(P01, banks, "sty_", load=load, dc_add=dc_o)
+    if post is not None:
+        P10 = P10 + post * t2e
+        P11 = P11 + post * t2o
+    if store is None:
+        return P00, P01, P10, P11
+    return P00, P01, store(P10), store(P11)
+
+
+# ---------------------------------------------------------------------------
+# r2c grid-parity form (integer u >= 2 or a fraction p/q): p^2 phase planes
+# ---------------------------------------------------------------------------
+
+
+def frac_params(plan):
+    """(p, q) of the fractional r2c grid route, or None.  u = p/q is the
+    exact rational of the integer geometry (_exact_fraction); the route
+    needs q | h and q | w, even dims, the plan's C-float band edges equal
+    to the rational keep set (every y bin kept, the x band [0, w/2) with
+    the Nyquist dropped) and splits with q | n1 on both axes."""
+    if not plan.r2c or plan.integer_upscale is not None:
+        return None
+    params = _exact_fraction(plan)
+    if params is None:
+        return None
+    p, q = params
+    if (
+        plan.h % 2
+        or plan.w % 2
+        or plan.kept_lo_y + plan.kept_hi_y != plan.h
+        or plan.kept_lo_x != plan.w // 2
+        or plan.kept_hi_x != 0
+        or split_factors(plan.h, multiple_of=q) is None
+        or split_factors(plan.w, multiple_of=q) is None
+    ):
+        return None
+    return p, q
+
+
+def grid_params(plan):
+    """(p, q) of the r2c grid route: (u, 1) for an integer u >= 2 on the
+    row-split geometry with even dims and splits, frac_params otherwise."""
+    from .dense import r2c_rows_supported
+
+    if (
+        plan.r2c
+        and plan.integer_upscale is not None
+        and plan.integer_upscale >= 2
+        and r2c_rows_supported(plan)
+        and plan.h % 2 == 0
+        and plan.w % 2 == 0
+        and split_factors(plan.h) is not None
+        and split_factors(plan.w) is not None
+    ):
+        return plan.integer_upscale, 1
+    return frac_params(plan)
+
+
+def grid_supported(plan) -> bool:
+    return grid_params(plan) is not None
+
+
+def grid_u(banks: dict):
+    """Phase count p of an r2c grid bank set, None when not one."""
+    if "sgx1_b1" not in banks:
+        return None
+    u = 2
+    while f"sgx{u}_b1" in banks:
+        u += 1
+    return u
+
+
+def r2c_grid_staged_banks(plan, dtype: str = "float32") -> dict:
+    """Banks of the r2c grid transform (detect: "sgx1_b1" present):
+    sgy{ry}_ and sgx{rx}_ for phases 1..p-1 (the x convs fold /255 in, a
+    fraction p/q folds its stride-q decimation into the middle banks), and
+    where the band leaves a y-Nyquist residue the rank-1 pieces sg_y1n,
+    sg_yc{ry} and the chi convs sgb{rx}_ for rx = 0..p-1."""
+    params = grid_params(plan)
+    if params is None:
+        raise ValueError(f"plan has no r2c grid route: {plan}")
+    p, q = params
+    uf = Fraction(p, q)
+    h, w = plan.h, plan.w
+    banks, a0s = {}, {}
+    for ry in range(1, p):
+        cy, a0s[ry] = phase_y_kernel(h, plan.kept_lo_y, plan.kept_hi_y, ry, uf)
+        banks.update(conv_banks(cy, f"sgy{ry}_", dtype=dtype, decimate=q))
+    for rx in range(1, p):
+        psi, _ = phase_x_kernels(w, plan.kept_lo_x, rx, uf)
+        banks.update(conv_banks(psi / 255.0, f"sgx{rx}_", dtype=dtype, decimate=q,
+                                prefer=x_split_prefer(q, n=w)))
+    if any(a0 != 0.0 for a0 in a0s.values()):
+        banks["sg_y1n"] = (((-1.0) ** np.arange(h))[:, None] / 255.0).astype(dtype)
+        for ry in range(1, p):
+            banks[f"sg_yc{ry}"] = np.asarray(a0s[ry], dtype)
+        for rx in range(p):
+            _, chi = phase_x_kernels(w, plan.kept_lo_x, rx, uf)
+            banks.update(conv_banks(chi, f"sgb{rx}_", dtype=dtype, prefer=16 * q, decimate=q))
+    return banks
+
+
+def r2c_grid_staged(x_raw: torch.Tensor, banks: dict, store=None, load=None):
+    """r2c grid transform.  x_raw (..., C, h, w) holds raw pixel values
+    0..255; returns the p^2 pre-CAS phase planes row-major (P[0][0], ...,
+    P[p-1][p-1]), each (..., C, h/q, w/q) in CAS units (q = 1 for integer
+    factors).  The storage contract of r2c_quad_staged.
+
+    The x-phase planes are computed once and shared by every y phase: the
+    ry = 0 planes are their row subsamples at stride q (the identity y
+    roundtrip), the others their y convs, decimated for a fraction."""
+    u = grid_u(banks)
+    qd = banks["sgy1_m"].shape[2] // banks["sgy1_m"].shape[4]
+    h, w = x_raw.shape[-2:]
+    acc = banks["sgx1_b1"].dtype
+    dev = banks["sgx1_b1"].device
+    xf = x_raw.to(acc)
+    q = _xnyq_colsum(x_raw, xf)
+    xs = xf if qd == 1 else xf[..., ::qd]
+    P0 = [xs * (1.0 / 255.0) - (_signs(w // qd, qd, acc, dev) * q) * (1.0 / (255.0 * w))]
+    P0 += [conv_apply_lanes(xf, banks, f"sgx{rx}_") for rx in range(1, u)]
+    tc = None
+    if "sg_y1n" in banks:
+        tcorr = torch.matmul(banks["sg_y1n"].transpose(0, 1), xf)  # (..., 1, w)
+        tc = [conv_apply_lanes(tcorr, banks, f"sgb{rx}_") for rx in range(u)]
+    if store is not None:
+        P0 = [store(p) for p in P0]
+    planes = list(P0) if qd == 1 else [p[..., ::qd, :].contiguous() for p in P0]
+    for ry in range(1, u):
+        mb = banks[f"sgy{ry}_m"]
+        dcf = postf = None
+        if tc is not None:
+            dcf, postf = ynyq_dc_or_post(banks[f"sg_yc{ry}"], mb.shape[2], mb.shape[4], qd,
+                                         h // qd)
+        for rx in range(u):
+            P = conv_apply_rows(P0[rx], banks, f"sgy{ry}_", load=load,
+                                dc_add=None if dcf is None else dcf * tc[rx])
+            if postf is not None:
+                P = P + postf * tc[rx]
+            planes.append(P if store is None else store(P))
+    return tuple(planes)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,8 @@ neighbourhoods drives the adaptive sharpening weight
     out   = (c + scale * sum(cross)) / (1 + 4*scale)
 
 The fused CAS + quantize kernels (quad, rows-parity, woven) and their plain
-versions live in ops/cas_cuda.py.
+versions live in ops/cas_cuda.py; cas_quantize_banded is the float64 CAS of
+the -p 1 routes, in bounded memory.
 """
 from __future__ import annotations
 
@@ -53,6 +54,33 @@ def cas_sharpen(v: torch.Tensor, sharpen: float) -> torch.Tensor:
     sc = torch.where(torch.isnan(sc), torch.zeros_like(sc), sc)
     sc = -sharpen * torch.sqrt(torch.clamp(sc, min=0.0))
     return (c + sc * (n + w + e + s)) / (1.0 + 4.0 * sc)
+
+
+# elements of one band of cas_quantize_banded: cas_sharpen holds about 25
+# temporaries of its input's size, so a band of 2^24 float64 elements peaks
+# near 3.4 GB
+BAND_ELEMS = 1 << 24
+
+
+def cas_quantize_banded(v: torch.Tensor, sharpen: float, band_rows: int = None) -> torch.Tensor:
+    """quantize_u8(cas_sharpen(v, sharpen)) over (..., H, W), in row bands
+    so that the peak memory stays that of one band: each band of band_rows
+    output rows runs cas_sharpen on its rows and one real halo row above
+    and below (replicate-padded only at the image's own edges), and keeps
+    its own rows.  Every pixel sees the same neighbours as in the whole
+    image, so the result is identical to the whole-image form.  This is
+    the -p 1 routes' CAS (the JAX package keeps float64 CAS off its kernels
+    too).  band_rows defaults to the rows that fit BAND_ELEMS elements."""
+    H = v.shape[-2]
+    if band_rows is None:
+        band_rows = max(1, BAND_ELEMS // max(1, v[..., 0, :].numel()))
+    out = torch.empty(v.shape, dtype=torch.uint8, device=v.device)
+    for r0 in range(0, H, band_rows):
+        r1 = min(r0 + band_rows, H)
+        a = max(r0 - 1, 0)
+        band = cas_sharpen(v[..., a:min(r1 + 1, H), :], sharpen)
+        out[..., r0:r1, :] = quantize_u8(band[..., r0 - a:r1 - a, :])
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,36 +1,56 @@
 """Upscale pipeline: uint8 image (or a batch of frames) in, uint8 planes or
 image out (counterpart of vkresample_tpu/pipeline/upscale.py).
 
-The port runs the small dense tier (every axis <= DENSE_MAX) with CAS
-sharpen, R2C and c2c, in fp32 (-p 0) or half storage (-p 2), on two
-engines.  The MXU engine (on this card: the GEMM forms of fft/dense.py and
-fft/staged.py, fft/mxu_pipeline.py) takes one of these routes per frame,
-as the JAX package's _pipeline does:
+The port runs every plan the JAX package runs: R2C and c2c, with CAS
+sharpen, in fp32 (-p 0), half storage (-p 2) or fp64 (-p 1), at any size,
+on two engines.  The MXU engine (on this card: the GEMM forms of
+fft/dense.py and fft/staged.py, bank choice in fft/mxu_pipeline.py) takes
+one of these routes per frame, as the JAX package's _pipeline does:
 
-  quad   r2c u=2, width % 128 == 0, parity-plane consumer (the CLI):
-         dense.r2c_quad -> K1 cas_parity4_planes_u2 -> four uint8 planes
-  rows   r2c u=2 otherwise, every woven caller included (upscale()):
-         dense.r2c_rows -> K2 cas_parity_planes_u2 -> planes (E, D), woven
-         on the device for woven callers
-  rows   r2c integer u >= 3: dense.r2c_rows -> K5 cas_quantize_rows_u (row
-         weave fused into the CAS) -> woven image
-  chain  r2c fractional u and u=1: dense.r2c_chain on the normalized image
-         -> K3 cas_quantize
-  grid   c2c with p <= 4 phases (integer u >= 2 or a fraction p/q):
-         staged.c2c_grid_staged -> p^2 magnitude planes -> K1 at p=2, K4
-         cas_parity_grid_planes at p >= 3 -> p^2 uint8 planes, woven on the
-         device for woven callers
-  chain  c2c otherwise (u=1, p > 4): dense.c2c_chain -> K3 cas_quantize
+  quad   r2c u=2, width % 128 == 0, parity-plane consumer (the CLI), every
+         axis <= DENSE_MAX: dense.r2c_quad -> K1 cas_parity4_planes_u2 ->
+         four uint8 planes
+  rows   r2c u=2 otherwise below the cap, every woven caller included
+         (upscale()): dense.r2c_rows -> K2 cas_parity_planes_u2 -> planes
+         (E, D), woven on the device for woven callers
+  rows   r2c integer u >= 3 below the cap: dense.r2c_rows -> K5
+         cas_quantize_rows_u (row weave fused into the CAS) -> woven image
+  chain  r2c fractional u and u=1 below the cap: dense.r2c_chain on the
+         normalized image -> K3 cas_quantize
+  staged quad   r2c u=2 above the cap, any even width:
+         staged.r2c_quad_staged -> K1 -> four uint8 planes, woven on the
+         device (weave_grid_u8) for woven callers
+  big grid      r2c integer u >= 3 or a fraction p/q above the cap:
+         staged.r2c_grid_staged -> p^2 phase planes -> K4
+         cas_parity_grid_planes -> p^2 uint8 planes, woven for woven callers
+  grid   c2c with p <= 4 phases below the cap, any p above it (integer
+         u >= 2 or a fraction p/q): staged.c2c_grid_staged -> p^2 magnitude
+         planes -> K1 at p=2, K4 at p >= 3 -> p^2 uint8 planes
+  chain  c2c otherwise (u=1, p > 4 below the cap): dense.c2c_chain -> K3
 
-In half storage the pre-CAS planes are int16 Q2.14 and the y GEMMs read
-the stored planes; the chains keep float32 (the JAX generic branch has no
-storage codec).  The XLA engine (-engine xla, the reference tier) runs
-torch.fft on the materialized big spectrum -> K3.  fp64 and axes over
-DENSE_MAX raise NotImplementedError naming their ROADMAP.md item.
+Above GRID_MAX_U = 8 phases the grid planes are woven and take K3 (K4's
+instances stop at 8).  In half storage the pre-CAS planes are int16 Q2.14
+and the y convolutions read the stored planes; the chains keep float32 (the
+JAX generic branch has no storage codec).  The XLA engine (-engine xla, the
+reference tier) runs torch.fft on the materialized big spectrum -> K3, at
+any size.  An MXU plan above the cap that no staged form takes raises
+JAX's ValueError when its factor is a fraction and runs the reference tier
+when it is an integer (the JAX package runs its mixed-radix phases route
+there; fft/mxu_pipeline.py).
+
+fp64 (-p 1) runs no kernel, as the JAX package keeps it off Pallas: the
+image is normalized in float64, the pre-CAS image comes from the float64
+staged banks (fft/mxu_pipeline.py: staged64, grid64, c2cgrid64), the dense
+float64 banks where no staged form applies, or torch.fft in float64 on the
+XLA engine, and ops/cas.py::cas_quantize_banded sharpens and quantizes it
+in row bands, so the peak memory stays a few GB at any size.  -p 1 has no
+parity-plane output: its callers get the woven image.
 
 Every route takes leading frame dims: N frames in one call run each GEMM
 once on the batch and each CAS kernel once on N*C planes
-(pipeline/batched.py).
+(pipeline/batched.py).  Frames with more than CHANNEL_SERIAL_ELEMS output
+elements (C*H*W) run one channel at a time, as the JAX package's
+channel-serial loop does, with the same output.
 
 Every entry point runs on the current CUDA device unless the caller names
 another (``device="cpu"`` runs the kernels' plain versions); without a
@@ -56,10 +76,11 @@ import numpy as np
 import torch
 
 from ..core.config import Engine, Precision, resolve_device
-from ..core.plan import DENSE_MAX, UpscalePlan
+from ..core.plan import UpscalePlan
 from ..fft import dense, mxu_pipeline, staged
 from ..ops import cas as cas_ops
 from ..ops.cas_cuda import (
+    GRID_MAX_U,
     cas_parity4_planes_u2,
     cas_parity_grid_planes,
     cas_parity_planes_u2,
@@ -67,7 +88,7 @@ from ..ops.cas_cuda import (
     cas_quantize_rows_u,
 )
 from ..ops.spectrum import assemble_big_spectrum
-from ..ops.weave import weave_grid_u8, weave_rows_u8
+from ..ops.weave import weave_grid, weave_grid_u8, weave_rows_u8
 
 
 @contextlib.contextmanager
@@ -135,35 +156,39 @@ def _parity_route(plan: UpscalePlan) -> Optional[str]:
     dense cap, 'rows' (two planes) otherwise, None when u != 2."""
     if plan.integer_upscale != 2:
         return None
-    if plan.w % 128 == 0 or max(plan.h, plan.w, plan.H, plan.W) > DENSE_MAX:
+    if plan.w % 128 == 0 or plan.above_dense_cap:
         return "quad"
     return "rows"
 
 
-def unsupported_reason(plan: UpscalePlan) -> Optional[str]:
-    """Why the port cannot run this plan yet (naming the ROADMAP.md item
-    that ports it), or None when the plan is on the ported tiers."""
-    if plan.precision is Precision.DOUBLE:
-        return "fp64 (-p 1) is not ported yet (ROADMAP.md modules item 2)"
-    if max(plan.h, plan.w, plan.H, plan.W) > DENSE_MAX:
-        return (
-            f"axes over {DENSE_MAX} ({plan.h}x{plan.w} -> {plan.H}x{plan.W}) "
-            "are not ported yet (ROADMAP.md modules item 5)"
-        )
-    return None
+def route_engine(plan: UpscalePlan) -> Engine:
+    """The engine the plan runs on: plan.resolve_engine(), except that an
+    MXU plan with no bank set runs the reference tier when its factor is
+    an integer and raises JAX's ValueError when it is a fraction."""
+    engine = plan.resolve_engine()
+    if engine is Engine.MXU and mxu_pipeline.bank_set(plan) is None:
+        if plan.integer_upscale is None:
+            raise mxu_pipeline.big_fraction_error(plan)
+        return Engine.XLA
+    return engine
 
 
 def planes_format(plan: UpscalePlan) -> Optional[str]:
     """Output layout of the planes_out pipeline: 'quad' = four (C, H/2,
     W/2) planes p[row parity][col parity]; 'rows' = (E, D), each (C, H/2,
     W), the even and odd output rows; 'grid' = p^2 (C, H/p, W/p) planes
-    row-major (ry, rx) (c2c grid route, p=2 included); None = woven output
-    only."""
-    if unsupported_reason(plan) is not None or plan.resolve_engine() is not Engine.MXU:
+    row-major (ry, rx) (the c2c grid, p=2 included, and the r2c big grid);
+    None = woven output only (-p 1 among them)."""
+    if plan.precision is Precision.DOUBLE or plan.resolve_engine() is not Engine.MXU:
         return None
-    if not plan.r2c:
-        return "grid" if mxu_pipeline.c2c_grid_selected(plan) else None
-    return _parity_route(plan)
+    tag = mxu_pipeline.bank_set(plan)
+    if tag in ("c2cgrid", "grid"):
+        return "grid"
+    if tag == "staged":
+        return "quad"
+    if tag == "rows":
+        return _parity_route(plan)
+    return None
 
 
 def parity_planes_supported(plan: UpscalePlan) -> bool:
@@ -173,17 +198,39 @@ def parity_planes_supported(plan: UpscalePlan) -> bool:
 
 
 def make_device_banks(plan: UpscalePlan, engine: Engine, device, planes_out: bool):
-    """Float32 dense banks of an MXU plan on `device` (built in f64 numpy),
-    None for the XLA engine.  Only the x bank the route reads is uploaded:
-    alpha_odd for the quad route, alpha otherwise."""
+    """The banks of an MXU plan on `device` (built in f64 numpy, through
+    the disk bank cache), None for the XLA engine and for plans with no
+    bank set.  Of the row-split banks only the x bank the route reads is
+    uploaded: alpha_odd for the quad route, alpha otherwise."""
     if engine is not Engine.MXU:
         return None
+    banks = mxu_pipeline.make_dense_banks(plan)
+    if banks is None:
+        return None
     unused = "alpha" if planes_out and planes_format(plan) == "quad" else "alpha_odd"
-    return {
-        k: torch.from_numpy(v).to(device)
-        for k, v in mxu_pipeline.make_dense_banks(plan, "float32").items()
-        if k != unused
-    }
+    return {k: torch.from_numpy(v).to(device) for k, v in banks.items() if k != unused}
+
+
+# output elements (C*H*W) above which a frame runs one channel at a time
+# (vkresample_tpu/pipeline/upscale.py CHANNEL_SERIAL_ELEMS): a 3-channel
+# 16K -> 32K frame (1.6e9) still runs batched
+CHANNEL_SERIAL_ELEMS = int(2e9)
+
+
+def _channel_serial(plan: UpscalePlan, img_u8: torch.Tensor) -> bool:
+    c = img_u8.shape[-1]
+    return c > 1 and plan.H * plan.W * c > CHANNEL_SERIAL_ELEMS
+
+
+def _grid_cas(Ps, u: int, sharpen: float):
+    """The fused per-parity CAS of p^2 = u*u grid planes: K1 at u=2, K4 up
+    to GRID_MAX_U, beyond that the planes woven and K3, split back."""
+    if u == 2:
+        return cas_parity4_planes_u2(*Ps, sharpen)
+    if u <= GRID_MAX_U:
+        return cas_parity_grid_planes(Ps, u, sharpen)
+    out = cas_quantize(weave_grid(Ps, u), sharpen)
+    return tuple(out[..., ry::u, rx::u].contiguous() for ry in range(u) for rx in range(u))
 
 
 def _pipeline(img_u8: torch.Tensor, banks, plan: UpscalePlan, engine: Engine,
@@ -193,22 +240,37 @@ def _pipeline(img_u8: torch.Tensor, banks, plan: UpscalePlan, engine: Engine,
     image ((..., C, H, W) when planar_out).  Leading dims are frames: every
     transform broadcasts over them and every CAS kernel folds them into its
     plane count, so a batch of N frames runs each kernel once."""
+    if _channel_serial(plan, img_u8):
+        # one channel's working set live at a time; the outputs are
+        # concatenated on the channel axis (the reference loops its
+        # coordinates on the device the same way, vkFFT.h:7640-7646)
+        outs = [_pipeline(img_u8[..., c:c + 1], banks, plan, engine, planes_out, True)
+                for c in range(img_u8.shape[-1])]
+        if planes_out:
+            return tuple(torch.cat(ps, dim=-3) for ps in zip(*outs))
+        out = torch.cat(outs, dim=-3)
+        return out if planar_out else out.movedim(-3, -1).contiguous()
     x_raw = img_u8.movedim(-1, -3).contiguous()  # planar (..., C, h, w), like the reference
     codec = (
         dict(store=cas_ops.to_i16_storage, load=cas_ops.from_i16_storage)
         if plan.precision is Precision.HALF
         else {}
     )
-    if banks is not None and "cg_ay" in banks:
-        # c2c grid: raw uint8 feeds the staged convolutions (/255 folded
-        # into the x banks); the p^2 magnitude planes go to the fused
+    if plan.precision is Precision.DOUBLE:
+        # no kernel: the float64 pre-CAS image, then the banded CAS
+        x = cas_ops.normalize_u8(x_raw, torch.float64)
+        out = cas_ops.cas_quantize_banded(_precas(x, plan, engine, banks), plan.sharpen)
+    elif banks is not None and ("cg_ay" in banks or "stx_b1" in banks or "sgx1_b1" in banks):
+        # the staged forms: raw uint8 feeds the convolutions (/255 folded
+        # into the x banks); the parity or phase planes go to the fused
         # per-parity CAS
-        u = staged.c2c_grid_u(banks)
-        Ps = staged.c2c_grid_staged(x_raw, banks, **codec)
-        if u == 2:
-            Pu8 = cas_parity4_planes_u2(*Ps, plan.sharpen)
+        if "cg_ay" in banks:
+            u, Ps = staged.c2c_grid_u(banks), staged.c2c_grid_staged(x_raw, banks, **codec)
+        elif "stx_b1" in banks:
+            u, Ps = 2, staged.r2c_quad_staged(x_raw, banks, **codec)
         else:
-            Pu8 = cas_parity_grid_planes(Ps, u, plan.sharpen)
+            u, Ps = staged.grid_u(banks), staged.r2c_grid_staged(x_raw, banks, **codec)
+        Pu8 = _grid_cas(Ps, u, plan.sharpen)
         if planes_out:
             return Pu8
         out = weave_grid_u8(Pu8, u)
@@ -240,12 +302,9 @@ MAX_PLANES = 65535
 @functools.lru_cache(maxsize=16)
 def _build(plan: UpscalePlan, device: torch.device, planes_out: bool,
            planar_out: bool) -> Callable:
-    reason = unsupported_reason(plan)
-    if reason is not None:
-        raise NotImplementedError(reason)
     if planes_out and planes_format(plan) is None:
         raise ValueError(f"the plan has no parity-plane output: {plan}")
-    engine = plan.resolve_engine()
+    engine = route_engine(plan)
     banks = make_device_banks(plan, engine, device, planes_out)
 
     def fn(img):
