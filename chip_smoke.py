@@ -159,6 +159,26 @@ tier and the big tier beyond it) on the card at full frame sizes, and fails
               and from the disk cache (a cache of the run's own, under
               vkresample_tpu_torch/build/smoke); then the CLI at 4320x512
               -> 8640x1024 with -validate, -p 2 and -p 1
+  9. engine  the engine surface (ops/convolve.py, fft/ndim.py) through its
+              entry points at full width, seeded f32 inputs, each within
+              1e-5 * max|want| of float64 np.fft on the host (computed in
+              worker processes beside phases 6-8), ms per call (20 calls
+              after a warm-up, CUDA events), no CAS kernel launched:
+                fft_convolve2d, Gaussian sigma 2.5, auto
+                                         (3, 1024, 2048), (4096, 4096)
+                the same, mxu            (3, 1024, 2048)
+                fft_convolve2d, random kernel, auto
+                                         (3, 1024, 2048), (4096, 4096)
+                fft_convolve2d, a bank of 4 kernels (3, 1024, 2048)
+                fft_matrix_convolve2d, 3x3           (3, 1024, 2048)
+                fft_convolve2d_linear, 31x31 kernel  (3, 1080, 1920)
+                fftn forward and inverse             (256, 256, 256)
+                rfftn -> irfftn        (256, 256, 256), (64, 96, 135)
+              then the flagship CLI -u 2 -p 2 -n 5 in three alternating
+              pairs without and with -profile DIR (K1 launched in each),
+              whose torch.profiler traces must parse as JSON and name K1's
+              kernel and a GEMM; the first trace's five largest device
+              kernels printed
 
 The line before the card's line lists each kernel with its launches over
 the routes and runs, its worst difference, its time, its plain version's
@@ -828,9 +848,202 @@ def big_phase(dev, card, oracles, launches_of, zero_counters):
     print(f"[8 big] bank cache {bankcache.cache_dir()} cleared")
 
 
+# phase 9, the engine surface: case -> (operation, input shape, kernel,
+# engine), seeded f32 inputs at full width, held against float64 np.fft on
+# the host; twins that differ only in the engine share inputs and reference
+ENGINE = {
+    "conv gaussian auto (3, 1024, 2048)": ("conv", (3, 1024, 2048), "gaussian", "auto"),
+    "conv gaussian mxu (3, 1024, 2048)": ("conv", (3, 1024, 2048), "gaussian", "mxu"),
+    "conv gaussian auto (4096, 4096)": ("conv", (4096, 4096), "gaussian", "auto"),
+    "conv random auto (3, 1024, 2048)": ("conv", (3, 1024, 2048), "random", "auto"),
+    "conv random auto (4096, 4096)": ("conv", (4096, 4096), "random", "auto"),
+    "conv bank of 4 auto (3, 1024, 2048)": ("conv", (3, 1024, 2048), "bank4", "auto"),
+    "matrix 3x3 auto (3, 1024, 2048)": ("matrix", (3, 1024, 2048), "matrix3", "auto"),
+    "linear 31x31 auto (3, 1080, 1920)": ("linear", (3, 1080, 1920), "random31", "auto"),
+    "fftn forward (256, 256, 256)": ("fftn", (256, 256, 256), None, None),
+    "fftn inverse (256, 256, 256)": ("ifftn", (256, 256, 256), None, None),
+    "rfftn -> irfftn (256, 256, 256)": ("rfft", (256, 256, 256), None, None),
+    "rfftn -> irfftn (64, 96, 135)": ("rfft", (64, 96, 135), None, None),
+}
+ENGINE_SIGMA = 2.5
+ENGINE_TOL = 1e-5  # max|got - want| <= ENGINE_TOL * max|want|
+ENGINE_CALLS = 20
+PROFILE_PAIRS = 3  # flagship CLI runs without and with -profile, alternated
+PROFILE_TRACE_KERNEL = "cas_grid_kernel<2"  # K1: cas_grid.cu's U = 2 instance
+
+
+def engine_inputs(op: str, shape, kernel):
+    """The seeded inputs (x, k) of a phase-9 case, numpy f32; x is an (re,
+    im) pair for the complex transforms."""
+    import zlib
+
+    import numpy as np
+
+    from vkresample_tpu_torch.ops.convolve import gaussian_kernel
+
+    rng = np.random.default_rng(SEED + zlib.crc32(repr((op, shape, kernel)).encode()))
+    if op in ("fftn", "ifftn"):
+        return tuple(rng.standard_normal(shape, np.float32) for _ in range(2)), None
+    x = rng.standard_normal(shape, np.float32)
+    h, w = shape[-2:]
+    k = {
+        None: None,
+        "gaussian": lambda: gaussian_kernel(h, w, ENGINE_SIGMA),
+        "random": lambda: rng.standard_normal((h, w), np.float32) / np.float32((h * w) ** 0.5),
+        "bank4": lambda: rng.standard_normal((4, h, w), np.float32) / np.float32((h * w) ** 0.5),
+        "matrix3": lambda: rng.standard_normal((3, 3, h, w), np.float32)
+        / np.float32((3 * h * w) ** 0.5),
+        "random31": lambda: rng.standard_normal((31, 31), np.float32) / np.float32(31),
+    }[kernel]
+    return x, (k() if k else None)
+
+
+def engine_reference(op: str, shape, kernel):
+    """(float64 np.fft result of a phase-9 case, host seconds), in a worker
+    process; rfft cases give (rfftn spectrum, its irfftn)."""
+    sys.path.insert(0, ROOT)
+    import numpy as np
+
+    t0 = time.perf_counter()
+    x, k = engine_inputs(op, shape, kernel)
+    if op == "fftn":
+        return np.fft.fftn(x[0] + 1j * x[1].astype(np.float64)), time.perf_counter() - t0
+    if op == "ifftn":
+        return np.fft.ifftn(x[0] + 1j * x[1].astype(np.float64)), time.perf_counter() - t0
+    x = x.astype(np.float64)
+    if op == "rfft":
+        F = np.fft.rfftn(x)
+        return (F, np.fft.irfftn(F, s=shape)), time.perf_counter() - t0
+    k = k.astype(np.float64)
+    if op == "linear":
+        s = (shape[-2] + k.shape[-2] - 1, shape[-1] + k.shape[-1] - 1)
+        want = np.fft.irfft2(np.fft.rfft2(x, s) * np.fft.rfft2(k, s), s)
+        return want, time.perf_counter() - t0
+    s = shape[-2:]
+    X, K = np.fft.rfft2(x), np.fft.rfft2(k)
+    if op == "matrix":
+        Y = np.einsum("oihw,ihw->ohw", K, X)
+    elif k.ndim == 3:  # a bank: the output gains a leading K axis
+        Y = K[:, None] * X[None]
+    else:
+        Y = X * K
+    return np.fft.irfft2(Y, s), time.perf_counter() - t0
+
+
+def engine_phase(dev, card, engine_jobs, launches_of, zero_counters):
+    """Phase 9: the engine surface (ops/convolve.py, fft/ndim.py) at full
+    width through its entry points, each case against float64 np.fft
+    (computed in worker processes beside phases 6-8), ms per call; then the
+    flagship CLI in alternating pairs without and with -profile, whose
+    torch.profiler traces must parse and name K1's kernel and a GEMM."""
+    import glob
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vkresample_tpu_torch.fft.ndim import fftn, irfftn, rfftn
+    from vkresample_tpu_torch.io.png import write_png
+    from vkresample_tpu_torch.ops import convolve as conv_mod
+
+    for case, (op, shape, kernel, engine) in ENGINE.items():
+        x, k = engine_inputs(op, shape, kernel)
+        if op in ("fftn", "ifftn"):
+            pair = tuple(torch.from_numpy(v).to(dev) for v in x)
+            call = lambda: fftn(pair, axes=(0, 1, 2), inverse=op == "ifftn", device=dev)
+        elif op == "rfft":
+            xd = torch.from_numpy(x).to(dev)
+
+            def call():
+                F = rfftn(xd, axes=(0, 1, 2), device=dev)
+                return F, irfftn(F, s=shape, axes=(0, 1, 2), device=dev)
+        else:
+            xd = torch.from_numpy(x).to(dev)
+            # the Gaussian as a user makes it, on the host; the random
+            # kernels on the card
+            kd = k if kernel == "gaussian" else torch.from_numpy(k).to(dev)
+            fn = {"conv": conv_mod.fft_convolve2d, "matrix": conv_mod.fft_matrix_convolve2d,
+                  "linear": conv_mod.fft_convolve2d_linear}[op]
+            call = lambda: fn(xd, kd, engine=engine, device=dev)
+        zero_counters()
+        got = call()
+        torch.cuda.synchronize()
+        launches_of(case, set())
+        want, ref_secs = engine_jobs[(op, shape, kernel)].result()
+        parts = (((got[0][0], got[0][1]), want[0]), (got[1], want[1])) if op == "rfft" \
+            else ((got, want),)
+        ratios = []
+        for g, w in parts:
+            g = (g[0].double() + 1j * g[1].double()) if isinstance(g, tuple) else g.double()
+            require(tuple(g.shape) == w.shape, f"{case}: shape {tuple(g.shape)} vs {w.shape}")
+            g = g.cpu().numpy()
+            require(bool(np.all(np.isfinite(g))), f"{case}: non-finite output")
+            ratios.append(float(np.abs(g - w).max() / np.abs(w).max()))
+        del got, parts, g
+        ms = cuda_ms(call, ENGINE_CALLS)
+        print(f"[9 engine] {case}: max|got - want| / max|want| "
+              f"{', '.join(f'{r:.3e}' for r in ratios)} (tol {ENGINE_TOL:g}; float64 np.fft "
+              f"in {ref_secs:.3f} s on the host); {ms:.4f} ms/call ({ENGINE_CALLS} calls "
+              f"after a warm-up, CUDA events) on {card}")
+        require(max(ratios) <= ENGINE_TOL, f"{case}: error ratio {max(ratios):.3e}")
+        del call, want
+        torch.cuda.empty_cache()
+
+    # the flagship CLI, without and with -profile in alternating pairs (the
+    # second pair reversed, and so on) for the profiler's cost on the
+    # Time: line; each traced run writes its own directory
+    out_dir = os.path.join(ROOT, "vkresample_tpu_torch", "build", "smoke")
+    trace_root = os.path.join(out_dir, "profile")
+    shutil.rmtree(trace_root, ignore_errors=True)
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "profile_2048x1024.png")
+    write_png(src, seeded_image(1024, 2048))
+    argv = ["-i", src, "-o", src.replace(".png", "_out.png"), "-u", "2", "-p", "2", "-n", "5"]
+    times = {"cli": [], "cli -profile": []}
+    traces = []
+    for i in range(PROFILE_PAIRS):
+        order = ("cli", "cli -profile") if i % 2 == 0 else ("cli -profile", "cli")
+        for label in order:
+            trace_dir = os.path.join(trace_root, str(i))
+            zero_counters()
+            rc, lines = run_cli(argv + (["-profile", trace_dir] if "profile" in label else []))
+            for line in lines:
+                print(f"[9 engine] {label} (pair {i}): {line}")
+            t = [float(line.split(" Time: ")[1].split()[0]) for line in lines if " Time: " in line]
+            require(rc == 0 and t, f"{label} exited {rc} or printed no Time: line")
+            times[label] += t
+            launches_of(f"{label} (pair {i})", {"K1"})
+        found = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+        require(len(found) == 1, f"-profile wrote {found}")
+        traces += found
+    print(f"[9 engine] the flagship -u 2 -p 2 -n 5, Time: ms in run order, pairs alternated: "
+          f"without -profile {times['cli']}, with it {times['cli -profile']}; medians "
+          f"{float(np.median(times['cli'])):.3f} and {float(np.median(times['cli -profile'])):.3f}"
+          f" on {card}")
+    for n, trace in enumerate(traces):
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernel_us = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                kernel_us[e["name"]] = kernel_us.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+        print(f"[9 engine] trace {os.path.relpath(trace, ROOT)}: "
+              f"{os.path.getsize(trace)} bytes, {len(events)} events, "
+              f"{len(kernel_us)} device kernels")
+        if n == 0:
+            for name, us in sorted(kernel_us.items(), key=lambda kv: -kv[1])[:5]:
+                print(f"[9 engine] trace top kernel {us / 1e3:.4f} ms (sum over the traced "
+                      f"warm-up and -n 5 frames): {name[:140]}")
+        require(any(PROFILE_TRACE_KERNEL in name for name in kernel_us),
+                f"the -profile trace {trace} names no {PROFILE_TRACE_KERNEL} (K1)")
+        require(any("gemm" in name.lower() for name in kernel_us),
+                f"the -profile trace {trace} names no GEMM kernel")
+
+
 def main() -> int:
-    """Phases 1-8, with the big frames' oracles in worker processes that
-    are stopped before it returns or raises."""
+    """Phases 1-9, with the big frames' oracles and the engine cases'
+    float64 references in worker processes that are stopped before it
+    returns or raises."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1176,6 +1389,11 @@ def run(pool) -> int:
     # the big frames' fp64 oracles (phase 8) run in worker processes beside
     # phases 3-5; phase 6, the times, starts once they are done
     big_jobs = {key: pool.submit(oracle_job, *key) for key in BIG_ORACLES}
+    # phase 9's float64 references, queued behind them
+    engine_jobs = {}
+    for op, shape, kernel, _ in ENGINE.values():
+        if (op, shape, kernel) not in engine_jobs:
+            engine_jobs[(op, shape, kernel)] = pool.submit(engine_reference, op, shape, kernel)
 
     # 3. each kernel against its plain version at its routes' shapes
     for kid, k in kernels.items():
@@ -1480,6 +1698,9 @@ def run(pool) -> int:
 
     # 8. the big tier and fp64
     big_phase(dev, card, oracles, launches_of, zero_counters)
+
+    # 9. the engine surface and -profile
+    engine_phase(dev, card, engine_jobs, launches_of, zero_counters)
 
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda"} | {key: k[key] for key in (

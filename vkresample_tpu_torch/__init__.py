@@ -15,20 +15,28 @@ the R2C grid at u >= 3 and p/q, the c2c grid) and on the torch.fft
 reference tier (-engine xla), one frame or a batch of frames a call, and
 the batched-folder CLI mode (-ifolder -ofolder -numfiles -numthreads
 -batch -resume) with its PNG worker pool.  Staged bank sets are cached on
-disk (core/bankcache.py).  The entry points run on the current CUDA device
-unless the caller passes device="cpu".
+disk (core/bankcache.py).  Beside the upscaler, the VkFFT engine surface:
+circular, K-kernel, matrix and linear convolution in the frequency domain
+(ops/convolve.py) and the N-D FFT over (re, im) pairs (fft/ndim.py), on
+torch.fft.  The entry points run on the current CUDA device unless the
+caller passes device="cpu".
 
 Public API:
     upscale(img, upscale, precision=..., sharpen=..., r2c=..., engine=..., device=...) -> (H, W, C) uint8
     build_upscale(plan, device, planes_out=..., planar_out=...) -> per-frame function
     upscale_batch(imgs, plan, device=...) -> (N, H, W, C) uint8
     build_batched_upscale(plan, device, planar_out=..., planes_out=...) -> per-batch function
-    UpscalePlan, Precision, Engine
+    UpscalePlan, Precision, Engine, ResampleConfig, output_dims
+    factorize_7smooth, is_7smooth, plan_factors — 7-smooth size planning
+    fft_convolve2d(x, kernel, engine=..., device=...) -> circular convolution
+    fft_matrix_convolve2d(x, kernel, engine=..., device=...) -> matrix convolution
 """
 
 __version__ = "0.1.0"
 
-from .core.config import Engine, Precision  # noqa: F401
-from .core.plan import UpscalePlan  # noqa: F401
+from .core.config import Engine, Precision, ResampleConfig  # noqa: F401
+from .core.plan import UpscalePlan, output_dims  # noqa: F401
+from .core.smooth import factorize_7smooth, is_7smooth, plan_factors  # noqa: F401
+from .ops.convolve import fft_convolve2d, fft_matrix_convolve2d  # noqa: F401
 from .pipeline.batched import build_batched_upscale, upscale_batch  # noqa: F401
 from .pipeline.upscale import build_upscale, upscale  # noqa: F401

@@ -11,10 +11,11 @@ Precision modes (``-p``):
         stored as int16 Q2.14 (ops/cas.py), compute stays fp32.
 
 The port runs every float32 GEMM in full fp32 with TF32 off (see
-pipeline/upscale.py); there is no per-mode matmul precision knob.
+fp32_matmul below); there is no per-mode matmul precision knob.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 from typing import Optional
@@ -94,6 +95,32 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+@contextlib.contextmanager
+def fp32_matmul():
+    """Run the block with float32 matmuls (and cuDNN convolutions and RNNs)
+    in full fp32, then restore the TF32 settings exactly as they were, also
+    when the block raises.  torch.set_float32_matmul_precision sets the
+    legacy matmul precision and the per-backend matmul fp32_precision
+    together; cuDNN goes through its per-backend fp32_precision settings
+    where the installed torch has them, else through cudnn.allow_tf32."""
+    b = torch.backends
+    if hasattr(b.cuda.matmul, "fp32_precision"):
+        flags = [(m, "fp32_precision", "ieee") for m in (b.cuda.matmul, b.cudnn.conv, b.cudnn.rnn)]
+    else:
+        flags = [(b.cudnn, "allow_tf32", False)]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in flags]
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    for m, name, value in flags:
+        setattr(m, name, value)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(precision)
+        for m, name, value in saved:
+            setattr(m, name, value)
 
 
 def default_output_name(w: int, upscale: float) -> str:

@@ -60,22 +60,21 @@ Numerics: every float32 GEMM runs in full fp32 (the JAX package pins a
 precision per matmul, core/config.py::Precision.matmul_precision); TF32
 keeps a 10-bit mantissa, which the <= 1 LSB bar against the fp64 oracle
 does not budget for.  Each call of a built pipeline runs inside
-fp32_matmul(): the matmul and cuDNN TF32 settings are pinned to full fp32
-for the call and the caller's own settings are restored when it returns or
-raises.  The flags are read when
-each op is dispatched on the host, so the asynchronous launches of the
-call see fp32 too; building a pipeline changes no setting.
+core/config.py::fp32_matmul(): the matmul and cuDNN TF32 settings are
+pinned to full fp32 for the call and the caller's own settings are
+restored when it returns or raises.  The flags are read when each op is
+dispatched on the host, so the asynchronous launches of the call see fp32
+too; building a pipeline changes no setting.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from ..core.config import Engine, Precision, resolve_device
+from ..core.config import Engine, Precision, fp32_matmul, resolve_device
 from ..core.plan import UpscalePlan
 from ..fft import dense, mxu_pipeline, staged
 from ..ops import cas as cas_ops
@@ -89,32 +88,6 @@ from ..ops.cas_cuda import (
 )
 from ..ops.spectrum import assemble_big_spectrum
 from ..ops.weave import weave_grid, weave_grid_u8, weave_rows_u8
-
-
-@contextlib.contextmanager
-def fp32_matmul():
-    """Run the block with float32 matmuls (and cuDNN convolutions and RNNs)
-    in full fp32, then restore the TF32 settings exactly as they were, also
-    when the block raises.  torch.set_float32_matmul_precision sets the
-    legacy matmul precision and the per-backend matmul fp32_precision
-    together; cuDNN goes through its per-backend fp32_precision settings
-    where the installed torch has them, else through cudnn.allow_tf32."""
-    b = torch.backends
-    if hasattr(b.cuda.matmul, "fp32_precision"):
-        flags = [(m, "fp32_precision", "ieee") for m in (b.cuda.matmul, b.cudnn.conv, b.cudnn.rnn)]
-    else:
-        flags = [(b.cudnn, "allow_tf32", False)]
-    saved = [(m, name, getattr(m, name)) for m, name, _ in flags]
-    precision = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    for m, name, value in flags:
-        setattr(m, name, value)
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(precision)
-        for m, name, value in saved:
-            setattr(m, name, value)
 
 
 def _irfft2(G: torch.Tensor, H: int, W: int) -> torch.Tensor:
