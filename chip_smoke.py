@@ -179,6 +179,29 @@ tier and the big tier beyond it) on the card at full frame sizes, and fails
               whose torch.profiler traces must parse as JSON and name K1's
               kernel and a GEMM; the first trace's five largest device
               kernels printed
+ 10. sp, dp   K6's shard wrapper (cas_quantize_blocked_halo) at the
+              flagship's shard shapes (3, 1024, 4096) and (3, 512, 4096),
+              identical on every pixel to its plain version, timed (50
+              calls; and on the device alone, from a CUDA graph); the sp
+              pencil mode through its five builders on
+              every rank, 3 seeded channels, -p 2 and -p 0:
+                rows (cuFFT pencils, K6)   2048x1024 -> 4096x2048     K6
+                dense, staged              2048x1024 -> 4096x2048     K3
+                grid u=3                   1280x720 -> 3840x2160      K3
+                c2c grid u=2               2048x1024 -> 4096x2048     K3
+              at S = 1 over NCCL and S = 2 and 4 as processes sharing the
+              card over gloo (parallel/launch.py::spawn, one spawn per S
+              running every case, its own timeout), and the staged -p 2
+              8192x4096 -> 16384x8192 frame at S = 2: each gathered frame
+              within 1 LSB of the fp64 oracle and of the single-card
+              upscale(), the form's kernel launched once per frame on each
+              rank and no other CAS kernel; ms/frame per rank (-n 5, CUDA
+              events), the share in collectives, peak device memory per
+              rank (the big frame's beside the single card's); then a dp
+              batch, build_batched_upscale over [cuda:0, cuda:0] on 8
+              flagship frames -p 2: each device's 4 frames identical to the
+              one-device call on them, all 8 within 1 LSB of the one-device
+              batch of 8 (cuBLAS tiles by batch size), K1 once per device
 
 The line before the card's line lists each kernel with its launches over
 the routes and runs, its worst difference, its time, its plain version's
@@ -689,6 +712,8 @@ def batched_phase(dev, card, kernels, oracles, image, zero_counters):
 BIG_KERNEL_CASES = [
     ("K1", (C, 4096, 8192)), ("K1", (C, 4320, 8640)), ("K1", (C, 8192, 16384)),
     ("K4", ((C, 2160, 3840), 3)), ("K3", (C, 8192, 16384)),
+    # the large sp frame's S = 2 column shard with its two halo columns
+    ("K3", (C, 8192, 8194)),
 ]
 
 # big-tier and fp64 run -> ((h, w), upscale, precision, engine, r2c, entry,
@@ -1040,8 +1065,241 @@ def engine_phase(dev, card, engine_jobs, launches_of, zero_counters):
                 f"the -profile trace {trace} names no GEMM kernel")
 
 
+# phase 10, the sp pencil mode: case -> (pencil form, (h, w), upscale,
+# precision, r2c), seeded frames at full width, each through the builder a
+# user calls on every rank; run at S = 1 over NCCL and at S = 2 and 4 as
+# processes that share the one card over gloo
+SP_CASES = {
+    "rows -p 2": ("rows", (1024, 2048), 2.0, "HALF", True),
+    "rows -p 0": ("rows", (1024, 2048), 2.0, "SINGLE", True),
+    "dense -p 2": ("dense", (1024, 2048), 2.0, "HALF", True),
+    "dense -p 0": ("dense", (1024, 2048), 2.0, "SINGLE", True),
+    "staged -p 2": ("staged", (1024, 2048), 2.0, "HALF", True),
+    "staged -p 0": ("staged", (1024, 2048), 2.0, "SINGLE", True),
+    "grid u=3 -p 2": ("grid", (720, 1280), 3.0, "HALF", True),
+    "grid u=3 -p 0": ("grid", (720, 1280), 3.0, "SINGLE", True),
+    "c2c grid u=2 -p 2": ("c2c_grid", (1024, 2048), 2.0, "HALF", False),
+    "c2c grid u=2 -p 0": ("c2c_grid", (1024, 2048), 2.0, "SINGLE", False),
+}
+# K3 at the column forms' shard blocks: (output (H, W), shard counts, dtypes)
+# for the flagship, the grid form's u=3 720p and the large frame
+K3_SHARDS = (
+    ((2048, 4096), (1, 2, 4), ("int16", "float32")),
+    ((2160, 3840), (1, 2, 4), ("int16", "float32")),
+    ((8192, 16384), (2,), ("int16",)),
+)
+# the large sp frame, at S = 2 only
+SP_BIG = {"big staged -p 2": ("staged", (4096, 8192), 2.0, "HALF", True)}
+SP_SHARDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+SP_ITERS = 5
+SP_TIMEOUT_S = 300
+DP_FRAMES = 8
+
+
+def sp_phase(dev, card, kernels, oracles, image, launches_of, zero_counters):
+    """Phase 10: the sp pencil mode and dp batches.  K6's shard wrapper
+    against its plain version at the flagship's shard shapes; every sp
+    case on S ranks (one spawn per S, every case in it), each gathered
+    frame within 1 LSB of the fp64 oracle and of the single-card upscale(),
+    K6 launched once per frame on every rank of the rows form and K3 once
+    on the others; ms/frame per rank, the collectives' share, peak device
+    memory per rank; then a dp batch over [cuda:0, cuda:0] against the
+    one-device calls."""
+    import numpy as np
+    import torch
+
+    from vkresample_tpu_torch import (Engine, Precision, UpscalePlan, build_batched_upscale,
+                                      upscale)
+    from vkresample_tpu_torch.ops import cas_cuda
+    from vkresample_tpu_torch.ops.cas import to_i16_storage
+    from vkresample_tpu_torch.parallel.distributed import OUTPUT_AXIS, gather_blocks
+    from vkresample_tpu_torch.parallel.launch import spawn
+    from vkresample_tpu_torch.parallel.mesh import split_frames
+    from vkresample_tpu_torch.parallel.sp_run import sp_frames
+
+    t_phase = time.perf_counter()
+    gb = 1024 ** 3
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    # K6's shard wrapper at the flagship's shard shapes (its 4096x2048 output
+    # cut into S row blocks), halo rows from the neighbouring rows of a
+    # whole seeded image
+    whole = torch.rand((C, 2048, 4096), generator=gen, device=dev) * 1.3 - 0.1
+    for S in (2, 4):
+        # the second shard: an inner one at S = 4, the last (its own bottom
+        # row as the halo below) at S = 2
+        r = 2048 // S
+        v = whole[:, r:2 * r].contiguous()
+        top = whole[:, r - 1:r].contiguous()
+        bot = (whole[:, 2 * r:2 * r + 1] if S > 2 else v[:, -1:]).contiguous()
+        got = cas_cuda.cas_quantize_blocked_halo(v, top, bot, 0.2)
+        htop, hbot = cas_cuda.blocked_halo_rows(v, 64)
+        htop[:, :1], hbot[:, -1:] = top, bot
+        want = cas_cuda.cas_quantize_blocked_reference(v, htop, hbot, 64, 0.2)
+        d, same = dev_diff([got], [want])
+        ms = cuda_ms(lambda: cas_cuda.cas_quantize_blocked_halo(v, top, bot, 0.2), 50)
+        alone = graph_ms(lambda: cas_cuda.cas_quantize_blocked_halo(v, top, bot, 0.2), 50)
+        halo = 2 * C * (-(-r // 64)) * 4096 * 4
+        bound_ms, bound_by = bound(v.numel() * 5 + halo, v.numel() * CAS_OPS_PER_PIXEL)
+        print(f"[10 sp] K6 cas_quantize_blocked_halo {tuple(v.shape)} (S = {S} shard of the "
+              f"flagship's output) vs its plain version: max|diff| {d} LSB, identical "
+              f"{same:.6f}; kernel {ms:.4f} ms (50 wrapper calls, CUDA events), on the "
+              f"device alone {alone:.4f} ms (halo gathers included, 50 calls replayed from "
+              f"one CUDA graph), bound {bound_ms:.4f} ms ({bound_by}) on {card}")
+        require(d == 0, f"K6's shard wrapper differs from its plain version at S = {S}")
+        kernels["K6"]["max_abs_err"] = max(kernels["K6"]["max_abs_err"], d)
+        # the same shard's CAS as K3 would run it: the rows padded with the
+        # two halo rows (one concat), K3, the halo rows cropped
+        k3_rows = lambda: cas_cuda.cas_quantize(  # noqa: E731
+            torch.cat([top, v, bot], -2), 0.2)[:, 1:-1].contiguous()
+        vpad = torch.cat([top, v, bot], -2)
+        d3 = dev_diff([k3_rows()], [got])[0]
+        print(f"[10 sp] K3 on the same S = {S} shard padded with its halo rows "
+              f"{tuple(vpad.shape)}: max|diff| vs K6 {d3} LSB (K6's sqrt/divide blend); "
+              f"concat + K3 + crop {cuda_ms(k3_rows, 50):.4f} ms, on the device alone "
+              f"{graph_ms(k3_rows, 50):.4f} ms; K3 alone "
+              f"{graph_ms(lambda: cas_cuda.cas_quantize(vpad, 0.2), 50):.4f} ms on the device "
+              f"alone, bound {cas_bound(vpad.shape, 1, 4)[0]:.4f} ms on {card}")
+        require(d3 <= TOL_LSB, f"K3 on the padded S = {S} shard differs from K6")
+    del whole, v, got, want, vpad
+
+    # K3 at the column forms' shard blocks: W/S + 2 columns (one halo column
+    # on each side; never a multiple of 4, so cas_rows.cu's scalar loads and
+    # byte stores), beside the aligned W/S block of the same rows; -p 2
+    # gives it int16, -p 0 f32.  Phase 3 holds every one of these shapes to
+    # the plain version on every pixel
+    for (H, W), shards, dts in K3_SHARDS:
+        for S in shards:
+            for dt in (getattr(torch, name) for name in dts):
+                read = []
+                for cols in (W // S, W // S + 2):
+                    v = torch.rand((C, H, cols), generator=gen, device=dev) * 1.3 - 0.1
+                    v = to_i16_storage(v) if dt == torch.int16 else v
+                    read.append((tuple(v.shape), cuda_ms(lambda: cas_cuda.cas_quantize(v, 0.2), 50),
+                                 graph_ms(lambda: cas_cuda.cas_quantize(v, 0.2), 50),
+                                 cas_bound(v.shape, 1, v.element_size())[0]))
+                # the column form's whole shard CAS as _cas_cols runs it once
+                # the halos are in: concat, K3, crop
+                left, right = v[..., :1].contiguous(), v[..., -1:].contiguous()
+                block = v[..., 1:-1].contiguous()
+                cols_cas = lambda: cas_cuda.cas_quantize(  # noqa: E731
+                    torch.cat([left, block, right], -1), 0.2)[..., 1:-1].contiguous()
+                (sa, ea, da, ba), (sp_, ep, dp_, bp) = read
+                print(f"[10 sp] K3 cas_quantize S = {S} column shard {sp_} {dt}: kernel "
+                      f"{ep:.4f} ms eager, {dp_:.4f} on the device alone, bound {bp:.4f} "
+                      f"({bp / dp_:.0%} of it); aligned {sa}: {ea:.4f} / {da:.4f}, bound "
+                      f"{ba:.4f}; padded / aligned on the device alone {dp_ / da:.3f}; "
+                      f"concat + K3 + crop {graph_ms(cols_cas, 50):.4f} ms on the device alone "
+                      f"(50 calls each, CUDA events / one CUDA graph) on {card}")
+                del v, left, right, block
+        torch.cuda.empty_cache()
+
+    def plan_of(form, hw, u, prec, r2c):
+        return UpscalePlan(h=hw[0], w=hw[1], upscale=u, precision=Precision[prec], r2c=r2c,
+                           engine=Engine.MXU)
+
+    # the single card's peak at the large frame, beside each rank's below
+    _, hw, u, _, _ = SP_BIG["big staged -p 2"]
+    big_plan = plan_of(*SP_BIG["big staged -p 2"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the single-card outputs each gathered frame is held against
+    singles = {"big staged -p 2": upscale(image(*hw), u, plan=big_plan, device=dev).cpu()}
+    torch.cuda.synchronize()
+    big_single_peak = torch.cuda.max_memory_allocated(dev) - held
+    print(f"[10 sp] big staged -p 2 {hw[1]}x{hw[0]} -> {big_plan.W}x{big_plan.H} on one card, "
+          f"upscale(): peak device memory {big_single_peak / gb:.3f} GB above the "
+          f"{held / gb:.3f} GB held on {card}")
+    torch.cuda.empty_cache()
+
+    # every case on S ranks: one spawn per S
+    for S, backend in SP_SHARDS:
+        names = list(SP_CASES) + (list(SP_BIG) if S == 2 else [])
+        specs = {**SP_CASES, **SP_BIG}
+        cases = [(specs[n][0], plan_of(*specs[n]), image(*specs[n][1])) for n in names]
+        label = ("one card, NCCL, one rank" if backend == "nccl" else
+                 f"one card shared by {S} ranks, gloo through host, not a multi-card speed")
+        t0 = time.perf_counter()
+        ranks = spawn(S, sp_frames, (cases, None, SP_ITERS), backend=backend,
+                      timeout_s=SP_TIMEOUT_S)
+        print(f"[10 sp] S = {S} over {backend}: {len(names)} cases on {S} ranks in "
+              f"{time.perf_counter() - t0:.3f} s (one spawn)")
+        for i, name in enumerate(names):
+            form, hw, u, prec, r2c = specs[name]
+            plan = cases[i][1]
+            recs = [r[i] for r in ranks]
+            kid = "K6" if form == "rows" else "K3"
+            for rank, rec in enumerate(recs):
+                require(rec["launches"] == {"K3": 0, "K6": 0} | {kid: 1},
+                        f"sp {name} S = {S} rank {rank}: launches {rec['launches']}, "
+                        f"expected {kid} once")
+            kernels[kid]["launches"] += S
+            got = torch.from_numpy(gather_blocks([r["block"] for r in recs], OUTPUT_AXIS[form]))
+            require(tuple(got.shape) == (plan.H, plan.W, C), f"sp {name} S = {S}: shape "
+                    f"{tuple(got.shape)}")
+            key = (hw[0], hw[1], u, r2c)
+            d_or, same_or = dev_diff([got.to(dev)], [torch.from_numpy(oracles[key]).to(dev)])
+            if name not in singles:
+                singles[name] = upscale(image(*hw), u, plan=plan, device=dev).cpu()
+            d_one, same_one = dev_diff([got.to(dev)], [singles[name].to(dev)])
+            ms = ", ".join(f"{r['ms']:.4f}" for r in recs)
+            share = ", ".join(f"{r['collective_share']:.3f}" for r in recs)
+            peak = ", ".join(f"{r['peak_bytes'] / gb:.3f}" for r in recs)
+            print(f"[10 sp] {name} {hw[1]}x{hw[0]} -> {plan.W}x{plan.H} S = {S} ({backend}): "
+                  f"max|diff| vs the fp64 oracle {d_or} LSB (identical {same_or:.6f}), vs the "
+                  f"single-card upscale() {d_one} LSB (identical {same_one:.6f}); {kid} once "
+                  f"per frame on each rank; ms/frame per rank [{ms}] (-n {SP_ITERS}, CUDA "
+                  f"events); share in collectives per rank [{share}]; peak device memory per "
+                  f"rank [{peak}] GB" + (f" (one card: {big_single_peak / gb:.3f} GB)"
+                                         if name in SP_BIG else "")
+                  + f"; {label}; {card}")
+            require(d_or <= TOL_LSB and d_one <= TOL_LSB,
+                    f"sp {name} S = {S}: {d_or} LSB from the oracle, {d_one} from upscale()")
+            del got
+        del ranks
+        torch.cuda.empty_cache()
+
+    # dp: a batch split over [cuda:0, cuda:0]; each device's share against
+    # the one-device call on the same frames (identical), the whole against
+    # the one-device batch of all of them (cuBLAS picks its GEMM tiles by
+    # the batch's size, so that is within 1 LSB, as in phase 7)
+    plan = UpscalePlan(h=1024, w=2048, upscale=2.0, precision=Precision.HALF)
+    frames = torch.from_numpy(np.random.default_rng(SEED + 10).integers(
+        0, 256, (DP_FRAMES, 1024, 2048, C), np.uint8))
+    # the first frame of each device's share is the flagship's seeded
+    # image, whose fp64 oracle the dp output is also held against
+    with_oracle = (0, DP_FRAMES // 2)
+    for i in with_oracle:
+        frames[i] = torch.from_numpy(image(1024, 2048))
+    one = build_batched_upscale(plan, dev, planes_out=True)
+    shares = [one(frames[s].to(dev)) for s in split_frames(DP_FRAMES, [dev, dev])]
+    whole = one(frames.to(dev))
+    zero_counters()
+    two = build_batched_upscale(plan, [dev, dev], planes_out=True)(frames)
+    torch.cuda.synchronize()
+    counts = launches_of("dp quad -p 2", {"K1"})
+    require(counts["K1"] == 2, f"dp: K1 launched {counts['K1']} times, expected once a device")
+    d_share = max(dev_diff(part, share)[0] for part, share in zip(two, shares))
+    d_whole, same = dev_diff([torch.cat([part[i] for part in two]) for i in range(4)], whole)
+    print(f"[10 dp] quad -p 2 {DP_FRAMES} x 2048x1024 over [{dev}, {dev}]: max|diff| vs the "
+          f"one-device call on each device's frames {d_share} LSB; vs the one-device batch of "
+          f"all {DP_FRAMES} {d_whole} LSB (identical {same:.6f}); K1 once per device "
+          f"({counts['K1']} launches) on {card}")
+    require(d_share == 0 and d_whole <= TOL_LSB, "dp batch differs from the one-device calls")
+    per = DP_FRAMES // 2
+    d_or = max(int(np.abs(woven_hwc([p[i % per] for p in two[i // per]], "quad", plan)
+                          .astype(np.int16) - oracles[(1024, 2048, 2.0, True)]).max())
+               for i in with_oracle)
+    print(f"[10 dp] quad -p 2 over [{dev}, {dev}]: frames {with_oracle} (the flagship image, "
+          f"the first of each device's share) max|diff| vs the fp64 oracle {d_or} LSB on {card}")
+    require(d_or <= TOL_LSB, f"dp output {d_or} LSB from the fp64 oracle")
+    print(f"[10 sp] phase 10 in {time.perf_counter() - t_phase:.3f} s")
+
+
 def main() -> int:
-    """Phases 1-9, with the big frames' oracles and the engine cases'
+    """Phases 1-10, with the big frames' oracles and the engine cases'
     float64 references in worker processes that are stopped before it
     returns or raises."""
     import multiprocessing
@@ -1228,7 +1486,10 @@ def run(pool) -> int:
                    (2, 37, 200), (2, 65, 131), (2, 21, 202), (2, 13, 132), (2, 64, 136),
                    (2, 130, 129), (1, 1, 70), (1, 1, 129), (2, 40, 1), (1, 1, 1)]
             + [((2, 37, 200), "misaligned"), ((C, 2160, 3840), "misaligned")]
-            + [(batch_planes[0], 1080, 1920)],
+            + [(batch_planes[0], 1080, 1920)]
+            # the sp column forms' shard blocks (one halo column on each
+            # side: W/S + 2) at S = 1, 2, 4, flagship and u=3 720p
+            + [(C, H, W // S + 2) for (H, W), shards, _ in K3_SHARDS[:2] for S in shards],
             args=lambda case, dt: image_args(case, dt, 1),
             bound=lambda a: cas_bound(a[0].shape, 1, a[0].element_size()),
             exact=True,
@@ -1701,6 +1962,9 @@ def run(pool) -> int:
 
     # 9. the engine surface and -profile
     engine_phase(dev, card, engine_jobs, launches_of, zero_counters)
+
+    # 10. the sp pencil mode and dp batches
+    sp_phase(dev, card, kernels, oracles, image, launches_of, zero_counters)
 
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda"} | {key: k[key] for key in (

@@ -18,8 +18,12 @@ the batched-folder CLI mode (-ifolder -ofolder -numfiles -numthreads
 disk (core/bankcache.py).  Beside the upscaler, the VkFFT engine surface:
 circular, K-kernel, matrix and linear convolution in the frequency domain
 (ops/convolve.py) and the N-D FFT over (re, im) pairs (fft/ndim.py), on
-torch.fft.  The entry points run on the current CUDA device unless the
-caller passes device="cpu".
+torch.fft.  Over several devices: a frame batch splits evenly over a
+list of devices ("dp", parallel/mesh.py), and one frame splits over the
+ranks of a torch.distributed group in the "sp" pencil mode
+(parallel/distributed.py; parallel/launch.py starts the ranks).  The entry
+points run on the current CUDA device unless the caller passes
+device="cpu".
 
 Public API:
     upscale(img, upscale, precision=..., sharpen=..., r2c=..., engine=..., device=...) -> (H, W, C) uint8
@@ -30,6 +34,9 @@ Public API:
     factorize_7smooth, is_7smooth, plan_factors — 7-smooth size planning
     fft_convolve2d(x, kernel, engine=..., device=...) -> circular convolution
     fft_matrix_convolve2d(x, kernel, engine=..., device=...) -> matrix convolution
+    build_sp_upscale, build_sp_upscale_dense, build_sp_upscale_staged,
+    build_sp_upscale_grid, build_sp_upscale_c2c_grid (plan, group, device)
+        -> this rank's function of one frame's row block
 """
 
 __version__ = "0.1.0"
@@ -40,3 +47,10 @@ from .core.smooth import factorize_7smooth, is_7smooth, plan_factors  # noqa: F4
 from .ops.convolve import fft_convolve2d, fft_matrix_convolve2d  # noqa: F401
 from .pipeline.batched import build_batched_upscale, upscale_batch  # noqa: F401
 from .pipeline.upscale import build_upscale, upscale  # noqa: F401
+from .parallel.distributed import (  # noqa: F401
+    build_sp_upscale,
+    build_sp_upscale_c2c_grid,
+    build_sp_upscale_dense,
+    build_sp_upscale_grid,
+    build_sp_upscale_staged,
+)

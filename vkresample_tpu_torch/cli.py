@@ -13,9 +13,11 @@ mode's timed region, utils/profiling.py).  Parsing is the same hand-rolled
 argv scan as the JAX CLI (findFlag/getFlagValue semantics,
 VkResample.cpp:1782-1794).
 
-The command line runs on CUDA device -d and exits 1 without one; only a
-Python caller of main() may ask for the CPU (device="cpu"), which runs the
-kernels' plain versions.
+The command line runs on CUDA device -d and exits 1 without one; with
+more than one visible card the folder mode shards each batch over all of
+them, as the JAX CLI does over all its devices.  Only a Python caller of
+main() may ask for the CPU (device="cpu", or a list of devices for the
+folder mode), which runs the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -162,17 +164,6 @@ def _validate(img, out_np, plan) -> int:
     return 0 if diff <= tol else 1
 
 
-def device_list_string() -> str:
-    import torch
-
-    if not torch.cuda.is_available():
-        return "No CUDA devices found."
-    return "\n".join(
-        f"Device id: {i} name: {torch.cuda.get_device_name(i)}"
-        for i in range(torch.cuda.device_count())
-    )
-
-
 def _make_plan(cfg, extras, h: int, w: int):
     """The plan of one frame; output dims must be 7-smooth when the engine
     resolves to the dense GEMM tier (vkresample_tpu/cli.py:178-194)."""
@@ -250,13 +241,21 @@ def run_single(cfg, extras, device) -> int:
 def _encode_chunk(pool, fmt, paths, res) -> None:
     """Move a batch's device output to the host and encode it, one path per
     frame: planar (N, 3, H, W) frames, or the parity planes of
-    planes_format, each (N, 3, ...), which the encoder weaves.  The one
+    planes_format, each (N, 3, ...), which the encoder weaves; a list of
+    them (one per device of a "dp" batch) is joined in frame order, and
+    frames past len(paths) (a tail's zero padding) are dropped.  The one
     place the CLI maps a plane layout to its writer (run_single passes a
     batch of one)."""
+    import torch
+
+    n = len(paths)
     if fmt is None:
-        pool.encode_batch_planar(paths, res.cpu().numpy())
+        res = torch.cat([r.cpu() for r in res]) if isinstance(res, list) else res.cpu()
+        pool.encode_batch_planar(paths, res[:n].numpy())
         return
-    planes = [p.cpu().numpy() for p in res]
+    if isinstance(res, list):
+        res = [torch.cat([r[i].cpu() for r in res]) for i in range(len(res[0]))]
+    planes = [p[:n].cpu().numpy() for p in res]
     if fmt == "quad":
         pool.encode_batch_planar_parity4(paths, planes)
     elif fmt == "rows":
@@ -269,13 +268,17 @@ def run_batched(cfg, extras, device) -> int:
     """Batched-folder mode (vkresample_tpu/cli.py run_batched): frames
     prefix/000001.png ... in chunks of -batch frames, one batched call per
     chunk; the next chunk decodes on the host while the device works on the
-    current one."""
+    current one.  device may be a list of devices: each chunk then splits
+    evenly over them (the JAX CLI's "dp" mesh), the batch rounded to a
+    device multiple as there, a short tail padded with zero frames to one."""
     import os
 
+    import numpy as np
     import torch
 
     from .io.folder import frame_paths
     from .io.png import PngPool, read_png
+    from .parallel.mesh import batch_for_devices, data_parallel_devices
     from .pipeline.batched import build_batched_upscale
     from .pipeline.upscale import planes_format
 
@@ -302,15 +305,18 @@ def run_batched(cfg, extras, device) -> int:
     h, w = first.shape[:2]
     plan = _make_plan(cfg, extras, h, w)
     print(f"HBM per device: {_hbm_estimate_mb(plan)} MB")
-    device = torch.device(device)
+    devices = (data_parallel_devices(device) if isinstance(device, (list, tuple))
+               else [torch.device(device)])
+    n_dev = len(devices)
     n_files = len(in_paths)
-    batch = extras["batch"] or min(8, n_files)
-    if batch < 1:
-        raise ValueError(f"-batch takes a positive frame count, got {batch}")
+    if extras["batch"] < 0:
+        raise ValueError(f"-batch takes a positive frame count, got {extras['batch']}")
+    batch = batch_for_devices(extras["batch"], n_files, n_dev)
     # planar device output and planar encode: no layout transpose on either
     # side of the PNG boundary; parity-plane routes are woven by the encoder
     fmt = planes_format(plan)
-    fn = build_batched_upscale(plan, device, planar_out=True, planes_out=fmt is not None)
+    fn = build_batched_upscale(plan, devices if n_dev > 1 else devices[0], planar_out=True,
+                               planes_out=fmt is not None)
 
     t0 = time.perf_counter()
     done = 0
@@ -325,8 +331,13 @@ def run_batched(cfg, extras, device) -> int:
                 done += len(pending[0])
                 pending = None
             if imgs is not None:
-                # a short tail runs at its own size: eager calls compile no shape
-                pending = (out_paths[idx:idx + batch], fn(torch.from_numpy(imgs).to(device)))
+                # a short tail runs at its own size (eager calls compile no
+                # shape), padded only to split evenly over the devices
+                pad = -len(imgs) % n_dev
+                if pad:
+                    imgs = np.concatenate([imgs, np.zeros((pad,) + imgs.shape[1:], imgs.dtype)])
+                x = torch.from_numpy(imgs)
+                pending = (out_paths[idx:idx + batch], fn(x if n_dev > 1 else x.to(devices[0])))
             idx += batch
     dt = time.perf_counter() - t0
     print(
@@ -335,7 +346,7 @@ def run_batched(cfg, extras, device) -> int:
     )
     # the reference's completion line: "Thread %d finished. Device name:
     # %s ..." (VkResample.cpp:1773)
-    print(f"Finished. Device name: {_device_name(device)} (1 device(s))")
+    print(f"Finished. Device name: {_device_name(devices[0])} ({n_dev} device(s))")
     return 0
 
 
@@ -350,6 +361,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         print(HELP.format(version=__version__))
         return 0
     if find_flag(argv, "-devices"):
+        from .parallel.mesh import device_list_string
+
         print(device_list_string())
         return 0
     parsed = _parse(argv)
@@ -363,6 +376,12 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
             print("Error: no CUDA device")
             return 1
         device = f"cuda:{cfg.device_id}"
+        if cfg.file_upload and torch.cuda.device_count() > 1:
+            # folder batches shard over every visible card, as the JAX CLI
+            # shards them over every device
+            from .parallel.mesh import data_parallel_devices
+
+            device = data_parallel_devices()
     print("vkresample-tpu-torch - FFT based upscaling")
     t0 = time.perf_counter()
     try:

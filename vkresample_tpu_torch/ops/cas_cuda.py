@@ -13,6 +13,8 @@ Counterparts of vkresample_tpu/ops/cas_pallas.py:
                             (integer u >= 3 rows route)
   K6 cas_quantize_blocked   woven CAS over row blocks fed      csrc/cas_blocked.cu
                             outside-built halo rows (f32)
+                            (cas_quantize_blocked_halo: the row-sharded
+                            sp mode's CAS, parallel/distributed.py)
   K7 cas_quantize_mono      woven CAS, one persistent launch   csrc/cas_mono.cu
                             with a cp.async band pipeline (f32)
 
@@ -21,8 +23,10 @@ a woven pre-CAS image, int16 Q2.14 or float32, to uint8.  K1, K2 and K4
 take that image as parity planes and return uint8 planes of the same
 layout, K5 as the row-split pair (U, O) and returns the woven image, so
 the woven pre-CAS image never exists on the device.  K6 and K7 take the
-woven image in float32 only, as their JAX kernels do; they are on no
-route (in the JAX package only A/B scripts call them).  One plain version,
+woven image in float32 only, as their JAX kernels do.  K6 runs on the
+row-sharded sp mode, each rank's rows with its neighbours' edge rows as
+the outer halos; K7 is on no route (in the JAX package only A/B scripts
+call it).  One plain version,
 ``cas_quantize_reference``, holds the arithmetic; the other kernels' plain
 versions weave their inputs, call it and split the result.  K6 alone
 evaluates the blend as sqrt(num/den) with a divide (its JAX kernel's form,
@@ -422,14 +426,40 @@ def cas_quantize_blocked_reference(v, top, bot, bh: int, sharpen: float) -> torc
 
 
 def cas_quantize_blocked(v: torch.Tensor, sharpen: float, block_rows: int = 64) -> torch.Tensor:
-    """Blocked woven CAS + quantize: (..., H, W) float32 -> uint8 of the
-    same shape, in blocks of block_rows rows whose halo rows are gathered
-    first (blocked_halo_rows, two row-slice copies on the card).  CUDA
-    tensors go through csrc/cas_blocked.cu, CPU tensors take the plain
-    version.  The output does not depend on block_rows."""
+    """Blocked woven CAS + quantize of a whole image: (..., H, W) float32 ->
+    uint8 of the same shape, in blocks of block_rows rows whose halo rows
+    are gathered first (blocked_halo_rows, two row-slice copies on the
+    card); the image's own edge rows are the outer halos (clamp to edge).
+    CUDA tensors go through csrc/cas_blocked.cu, CPU tensors take the plain
+    version.  The output does not depend on block_rows.  K6's launches,
+    here and in cas_quantize_blocked_halo, count in
+    cas_quantize_blocked.launches."""
     _check_f32("blocked CAS", v)
     bh = _block_rows(block_rows)
+    return _blocked(v, *blocked_halo_rows(v, bh), bh, sharpen)
+
+
+def cas_quantize_blocked_halo(v: torch.Tensor, top_row: torch.Tensor, bot_row: torch.Tensor,
+                              sharpen: float, block_rows: int = 64) -> torch.Tensor:
+    """K6 on one shard of a row-sharded image: v (..., H, W) float32 is the
+    shard's rows, top_row and bot_row (..., 1, W) float32 the previous
+    shard's last row and the next shard's first (the shard's own edge row
+    at the image's top and bottom).  The output equals the whole image's
+    CAS on the shard's rows.  CUDA tensors go through csrc/cas_blocked.cu,
+    CPU tensors take the plain version."""
+    _check_f32("blocked CAS", v)
+    bh = _block_rows(block_rows)
+    edge = v.shape[:-2] + (1, v.shape[-1])
+    _check("blocked CAS halo", (v, top_row, bot_row), (v.shape, edge, edge))
     top, bot = blocked_halo_rows(v, bh)
+    top[..., :1, :] = top_row
+    bot[..., -1:, :] = bot_row
+    return _blocked(v, top, bot, bh, sharpen)
+
+
+def _blocked(v, top, bot, bh: int, sharpen: float) -> torch.Tensor:
+    """K6's one launch site: v and its blocks' halo rows (blocked_halo_rows'
+    layout) -> uint8."""
     if v.device.type == "cpu":
         return cas_quantize_blocked_reference(v, top, bot, bh, sharpen)
     H, W = v.shape[-2:]

@@ -5,9 +5,16 @@ The pipeline broadcasts over leading frame dims (pipeline/upscale.py
 _pipeline), and every CAS kernel folds frames x channels into its plane
 count, so a batch runs each kernel of its route once: N*C planes in one
 launch.  Eager PyTorch compiles no batch shape, so a short tail batch runs
-at its own size with no zero padding.  The JAX package's mesh argument
-(frames sharded over a data-parallel device mesh) is not ported: a batch
-runs on one device (ROADMAP.md modules item 7).
+at its own size with no zero padding.
+
+A sequence of devices in place of one device is the JAX package's "dp"
+mesh (parallel/mesh.py): the frames split evenly over the devices
+(split_frames; ValueError unless their count divides the batch), each
+device runs its own cached pipeline with its own banks on its share, all
+launched from one host thread (the launches on different cards overlap),
+with no collectives, and the result is one output per device in frame
+order.  Repeats are allowed: ["cpu", "cpu"] or [cuda:0, cuda:0] split a
+batch in two on one device.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import torch
 
 from ..core.config import resolve_device
 from ..core.plan import UpscalePlan
+from ..parallel.mesh import data_parallel_devices, split_frames
 from .upscale import _build
 
 
@@ -29,14 +37,29 @@ def build_batched_upscale(plan: UpscalePlan, device=None, planar_out: bool = Fal
     (default: the current CUDA device; "cpu" runs the kernels' plain
     versions).  The function is build_upscale's, cached per (plan, device,
     flags) with its banks uploaded once.  ValueError past MAX_PLANES frames
-    x channels (21845 three-channel frames)."""
-    return _build(plan, resolve_device(device), bool(planes_out), bool(planar_out))
+    x channels (21845 three-channel frames).
+
+    device may also be a list or tuple of devices (the "dp" mode, see the
+    module docstring): the function then returns a list with each device's
+    output for its N/k frames, in frame order."""
+    if not isinstance(device, (list, tuple)):
+        return _build(plan, resolve_device(device), bool(planes_out), bool(planar_out))
+    devices = data_parallel_devices(device)
+    fns = [_build(plan, d, bool(planes_out), bool(planar_out)) for d in devices]
+
+    def run(imgs):
+        imgs = torch.as_tensor(imgs)
+        parts = split_frames(imgs.shape[0] if imgs.dim() else 0, devices)
+        return [fn(imgs[s].to(d)) for fn, d, s in zip(fns, devices, parts)]
+
+    return run
 
 
-def upscale_batch(imgs, plan: UpscalePlan, device=None) -> torch.Tensor:
+def upscale_batch(imgs, plan: UpscalePlan, device=None):
     """Convenience wrapper: (N, h, w, C) uint8 frames (numpy array or
-    tensor) -> the (N, H, W, C) uint8 batch on the device; TypeError on
-    anything but 4-D uint8."""
+    tensor) -> the (N, H, W, C) uint8 batch on the device, or with a list
+    of devices each device's (N/k, H, W, C) share in frame order; TypeError
+    on anything but 4-D uint8."""
     imgs = torch.as_tensor(imgs)
     if imgs.dtype != torch.uint8 or imgs.dim() != 4:
         raise TypeError(f"expected (N, h, w, C) uint8, got {tuple(imgs.shape)} {imgs.dtype}")
