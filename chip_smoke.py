@@ -35,10 +35,19 @@ tier and the big tier beyond it) on the card at full frame sizes, and fails
               pixel to its plain version and to weave_rows + K3; K8 and K9
               at both fused-y frames with the frame's y bank and at odd
               shapes (h = 1, 37; W = 200) with T2 present and absent; K6
-              and K7 (f32 only) at the A/B frame's (3, 2048, 4096), K3's
-              (3, 2160, 3840) and (2, 37, 201) at bh 1, 7, 64 (K6) and 1,
-              32, 128 (K7): K7 identical to its plain version and to K3
-              on every pixel, K6 within 1 LSB of K3; the copy-quantize
+              (f32 only; cas_rows.cu's block-local instance) with random
+              halo rows, not v's own, at the A/B frame's (3, 2048, 4096)
+              bh 64, the sp rows form's flagship shards (3, 1024, 4096)
+              and (3, 512, 4096) as one block, K3's (3, 2160, 3840) and
+              (2, 37, 201) at bh 1, 7, 64 and odd or ragged cases,
+              identical on every pixel to its plain version; K3's
+              column-halo entry K3h with random halo columns at the sp
+              column forms' shard blocks (3, 2048, 4096 / S) and (3, 2160,
+              3840 / S), S = 1, 2, 4, and odd and single-column blocks,
+              identical on every pixel to its plain version; K7 (f32
+              only) at (3, 2048, 4096), (3, 2160, 3840) and (2, 37, 201) at
+              bh 1, 32, 128, identical to its plain version and to K3 on
+              every pixel; the copy-quantize
               probes K10a (the tile of K3's first design), K10b (K7's
               band pipeline) and K10c (the copy-only instance of
               cas_rows.cu's kernel, K5's, K3's and K2's data movement),
@@ -51,7 +60,9 @@ tier and the big tier beyond it) on the card at full frame sizes, and fails
               9 x (3, 2160, 3840), K3 at (3, 8192, 16384), identical on
               every pixel to their plain versions run in row bands with a
               one-row halo (the whole image's output in bounded memory),
-              compared on the card, each timed (10 wrapper calls)
+              compared on the card, each timed (10 wrapper calls); K3h at
+              the large sp frame's S = 2 column shard (3, 8192, 8192), the
+              same way
   4. routes   each route through the entry point a user calls
               (build_upscale(plan, planes_out=True) as the CLI does, or
               upscale()) against the fp64 oracle (<= 1 LSB); every
@@ -107,7 +118,7 @@ tier and the big tier beyond it) on the card at full frame sizes, and fails
               (-n 20, CUDA events), each kernel against its plain version
               (50 wrapper calls, CUDA events; K4 at its three route shapes
               and K2 and K5 at their two, and beside them, printed only,
-              the device time alone of K1, K2, K3, K4 and K5: 50 calls
+              the device time alone of K1, K2, K3, K3h, K4, K5 and K6: 50 calls
               replayed from one CUDA graph, since K4's wrapper takes about
               as long on the host as its kernel on the device), the
               unfused forms K5, K8
@@ -179,16 +190,24 @@ tier and the big tier beyond it) on the card at full frame sizes, and fails
               whose torch.profiler traces must parse as JSON and name K1's
               kernel and a GEMM; the first trace's five largest device
               kernels printed
- 10. sp, dp   K6's shard wrapper (cas_quantize_blocked_halo) at the
-              flagship's shard shapes (3, 1024, 4096) and (3, 512, 4096),
-              identical on every pixel to its plain version, timed (50
-              calls; and on the device alone, from a CUDA graph); the sp
-              pencil mode through its five builders on
+ 10. sp, dp   K6's shard wrapper (cas_quantize_blocked_halo, the shard
+              one block) at the flagship's shard shapes (3, 2048, 4096),
+              (3, 1024, 4096) and (3, 512, 4096), and each column form's
+              whole shard CAS (cas_quantize_cols_halo) at (3, 2048, 4096 /
+              S) and (3, 2160, 3840 / S), S = 1, 2, 4, int16 and f32, and
+              (3, 8192, 8192) int16: identical on every pixel to their
+              plain versions and to the parent's forms (gathered 64-row
+              blocks; concat + K3 + crop), timed eager (50 calls) and on
+              the device alone (from a CUDA graph) beside the parent's
+              readings, the parent's form in the same run and the bound;
+              torch.profiler counts one CAS kernel and no other device
+              kernel or copy in each; then the sp pencil mode through its
+              five builders on
               every rank, 3 seeded channels, -p 2 and -p 0:
                 rows (cuFFT pencils, K6)   2048x1024 -> 4096x2048     K6
-                dense, staged              2048x1024 -> 4096x2048     K3
-                grid u=3                   1280x720 -> 3840x2160      K3
-                c2c grid u=2               2048x1024 -> 4096x2048     K3
+                dense, staged              2048x1024 -> 4096x2048     K3h
+                grid u=3                   1280x720 -> 3840x2160      K3h
+                c2c grid u=2               2048x1024 -> 4096x2048     K3h
               at S = 1 over NCCL and S = 2 and 4 as processes sharing the
               card over gloo (parallel/launch.py::spawn, one spawn per S
               running every case, its own timeout), and the staged -p 2
@@ -206,7 +225,8 @@ tier and the big tier beyond it) on the card at full frame sizes, and fails
 The line before the card's line lists each kernel with its launches over
 the routes and runs, its worst difference, its time, its plain version's
 time and its bound: the larger of the bytes it must move (inputs read
-once, outputs written once; K6's halo rows included) over 3.35 TB/s and
+once, outputs written once; K6's halo rows and K3h's halo columns
+included) over 3.35 TB/s and
 its fp32 operations (~40 per output pixel
 for the CAS, 3 for the quantize, plus 2*C*h*(h+r)*W for the fused y GEMM)
 over 67 TFLOP/s (H100 SXM).  No single PyTorch call computes CAS, with or
@@ -381,6 +401,14 @@ def cas_bound(shape, n_planes: int, in_bytes: int):
     for d in shape:
         px *= d
     return bound(px * (in_bytes + 1), px * CAS_OPS_PER_PIXEL)
+
+
+def halo_bound(a):
+    """Bound of K6 or K3h on (v, its two halo tensors, ...): v and the halos
+    read once, as many uint8 pixels as v written."""
+    v, es = a[0], a[0].element_size()
+    return bound(v.numel() * (es + 1) + (a[1].numel() + a[2].numel()) * es,
+                 v.numel() * CAS_OPS_PER_PIXEL)
 
 
 def ycas_bound(U, T2, YT):
@@ -712,8 +740,8 @@ def batched_phase(dev, card, kernels, oracles, image, zero_counters):
 BIG_KERNEL_CASES = [
     ("K1", (C, 4096, 8192)), ("K1", (C, 4320, 8640)), ("K1", (C, 8192, 16384)),
     ("K4", ((C, 2160, 3840), 3)), ("K3", (C, 8192, 16384)),
-    # the large sp frame's S = 2 column shard with its two halo columns
-    ("K3", (C, 8192, 8194)),
+    # the large sp frame's S = 2 column shard, its halo columns by pointer
+    ("K3h", (C, 8192, 8192)),
 ]
 
 # big-tier and fp64 run -> ((h, w), upscale, precision, engine, r2c, entry,
@@ -1081,8 +1109,9 @@ SP_CASES = {
     "c2c grid u=2 -p 2": ("c2c_grid", (1024, 2048), 2.0, "HALF", False),
     "c2c grid u=2 -p 0": ("c2c_grid", (1024, 2048), 2.0, "SINGLE", False),
 }
-# K3 at the column forms' shard blocks: (output (H, W), shard counts, dtypes)
-# for the flagship, the grid form's u=3 720p and the large frame
+# the column forms' shard blocks (H, W/S) of K3h: (output (H, W), shard
+# counts, dtypes) for the flagship, the grid form's u=3 720p and the large
+# frame
 K3_SHARDS = (
     ((2048, 4096), (1, 2, 4), ("int16", "float32")),
     ((2160, 3840), (1, 2, 4), ("int16", "float32")),
@@ -1091,22 +1120,34 @@ K3_SHARDS = (
 # the large sp frame, at S = 2 only
 SP_BIG = {"big staged -p 2": ("staged", (4096, 8192), 2.0, "HALF", True)}
 SP_SHARDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+# the parent commit's device-alone readings of each form's shard CAS
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6): K6's first design with
+# gathered 64-row blocks (at S = 1: the A/B frame at bh = 64), and concat +
+# K3 + crop at S = 1
+PARENT_SHARD_CAS = {
+    ("rows", 1): "0.2096-0.2107 ms", ("rows", 2): "0.1120-0.1126 ms",
+    ("rows", 4): "0.0649-0.0651 ms",
+    ("cols", 2048, 4096, 1, "torch.int16"): "0.2217 ms",
+    ("cols", 2048, 4096, 1, "torch.float32"): "0.2325 ms",
+}
 SP_ITERS = 5
 SP_TIMEOUT_S = 300
 DP_FRAMES = 8
 
 
 def sp_phase(dev, card, kernels, oracles, image, launches_of, zero_counters):
-    """Phase 10: the sp pencil mode and dp batches.  K6's shard wrapper
-    against its plain version at the flagship's shard shapes; every sp
-    case on S ranks (one spawn per S, every case in it), each gathered
-    frame within 1 LSB of the fp64 oracle and of the single-card upscale(),
-    K6 launched once per frame on every rank of the rows form and K3 once
-    on the others; ms/frame per rank, the collectives' share, peak device
-    memory per rank; then a dp batch over [cuda:0, cuda:0] against the
-    one-device calls."""
+    """Phase 10: the sp pencil mode and dp batches.  Each form's shard CAS
+    (K6's shard wrapper, K3h) against its plain version and the parent's
+    form at the flagship's shard shapes, timed, one CAS kernel a call by
+    torch.profiler; every sp case on S ranks (one spawn per S, every case
+    in it), each gathered frame within 1 LSB of the fp64 oracle and of the
+    single-card upscale(), K6 launched once per frame on every rank of the
+    rows form and K3h once on the others; ms/frame per rank, the
+    collectives' share, peak device memory per rank; then a dp batch over
+    [cuda:0, cuda:0] against the one-device calls."""
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from vkresample_tpu_torch import (Engine, Precision, UpscalePlan, build_batched_upscale,
                                       upscale)
@@ -1121,77 +1162,87 @@ def sp_phase(dev, card, kernels, oracles, image, launches_of, zero_counters):
     gb = 1024 ** 3
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
 
-    # K6's shard wrapper at the flagship's shard shapes (its 4096x2048 output
-    # cut into S row blocks), halo rows from the neighbouring rows of a
-    # whole seeded image
-    whole = torch.rand((C, 2048, 4096), generator=gen, device=dev) * 1.3 - 0.1
-    for S in (2, 4):
-        # the second shard: an inner one at S = 4, the last (its own bottom
-        # row as the halo below) at S = 2
-        r = 2048 // S
-        v = whole[:, r:2 * r].contiguous()
-        top = whole[:, r - 1:r].contiguous()
-        bot = (whole[:, 2 * r:2 * r + 1] if S > 2 else v[:, -1:]).contiguous()
-        got = cas_cuda.cas_quantize_blocked_halo(v, top, bot, 0.2)
-        htop, hbot = cas_cuda.blocked_halo_rows(v, 64)
-        htop[:, :1], hbot[:, -1:] = top, bot
-        want = cas_cuda.cas_quantize_blocked_reference(v, htop, hbot, 64, 0.2)
-        d, same = dev_diff([got], [want])
-        ms = cuda_ms(lambda: cas_cuda.cas_quantize_blocked_halo(v, top, bot, 0.2), 50)
-        alone = graph_ms(lambda: cas_cuda.cas_quantize_blocked_halo(v, top, bot, 0.2), 50)
-        halo = 2 * C * (-(-r // 64)) * 4096 * 4
-        bound_ms, bound_by = bound(v.numel() * 5 + halo, v.numel() * CAS_OPS_PER_PIXEL)
-        print(f"[10 sp] K6 cas_quantize_blocked_halo {tuple(v.shape)} (S = {S} shard of the "
-              f"flagship's output) vs its plain version: max|diff| {d} LSB, identical "
-              f"{same:.6f}; kernel {ms:.4f} ms (50 wrapper calls, CUDA events), on the "
-              f"device alone {alone:.4f} ms (halo gathers included, 50 calls replayed from "
-              f"one CUDA graph), bound {bound_ms:.4f} ms ({bound_by}) on {card}")
-        require(d == 0, f"K6's shard wrapper differs from its plain version at S = {S}")
-        kernels["K6"]["max_abs_err"] = max(kernels["K6"]["max_abs_err"], d)
-        # the same shard's CAS as K3 would run it: the rows padded with the
-        # two halo rows (one concat), K3, the halo rows cropped
-        k3_rows = lambda: cas_cuda.cas_quantize(  # noqa: E731
-            torch.cat([top, v, bot], -2), 0.2)[:, 1:-1].contiguous()
-        vpad = torch.cat([top, v, bot], -2)
-        d3 = dev_diff([k3_rows()], [got])[0]
-        print(f"[10 sp] K3 on the same S = {S} shard padded with its halo rows "
-              f"{tuple(vpad.shape)}: max|diff| vs K6 {d3} LSB (K6's sqrt/divide blend); "
-              f"concat + K3 + crop {cuda_ms(k3_rows, 50):.4f} ms, on the device alone "
-              f"{graph_ms(k3_rows, 50):.4f} ms; K3 alone "
-              f"{graph_ms(lambda: cas_cuda.cas_quantize(vpad, 0.2), 50):.4f} ms on the device "
-              f"alone, bound {cas_bound(vpad.shape, 1, 4)[0]:.4f} ms on {card}")
-        require(d3 <= TOL_LSB, f"K3 on the padded S = {S} shard differs from K6")
-    del whole, v, got, want, vpad
+    # the shard CAS of each form as _cas_rows and _cas_cols run it once the
+    # halos are in: K6's shard wrapper on the rows form's shards of the
+    # flagship's output (the shard one block), the column-halo K3 on the
+    # column forms' blocks, with random halos (not the image's own rows or
+    # columns, so a kernel that ignored them would differ); beside each the
+    # parent's form on this run's kernels (K6 on 64-row blocks with gathered
+    # halo rows; concat + K3 + crop), the parent's own readings, K3 alone
+    # on the block and the bound; torch.profiler lists the device kernels
+    # of one call: one CAS kernel, no copy of the shard
+    def one_cas_kernel(what, fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        found = {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        require(list(found.values()) == [1] and "cas_rows_kernel" in next(iter(found)),
+                f"{what}: device kernels and copies {found}, expected one cas_rows_kernel")
+        return next(iter(found))
 
-    # K3 at the column forms' shard blocks: W/S + 2 columns (one halo column
-    # on each side; never a multiple of 4, so cas_rows.cu's scalar loads and
-    # byte stores), beside the aligned W/S block of the same rows; -p 2
-    # gives it int16, -p 0 f32.  Phase 3 holds every one of these shapes to
-    # the plain version on every pixel
+    def rand(shape, dt):
+        v = torch.rand(shape, generator=gen, device=dev) * 1.3 - 0.1
+        return to_i16_storage(v) if dt == torch.int16 else v
+
+    for S in (1, 2, 4):
+        r = 2048 // S
+        v, top, bot = rand((C, r, 4096), torch.float32), *(rand((C, 1, 4096), torch.float32)
+                                                           for _ in range(2))
+        shard_cas = lambda: cas_cuda.cas_quantize_blocked_halo(v, top, bot, 0.2)  # noqa: E731
+
+        def parent_form():
+            htop, hbot = cas_cuda.blocked_halo_rows(v, 64)
+            htop[:, :1], hbot[:, -1:] = top, bot
+            return cas_cuda.cas_quantize_blocked_rows(v, htop, hbot, 64, 0.2)
+
+        got = shard_cas()
+        d, _ = dev_diff([got], [cas_cuda.cas_quantize_blocked_reference(v, top, bot, r, 0.2)])
+        d_parent, _ = dev_diff([got], [parent_form()])
+        kernel = one_cas_kernel(f"K6's shard wrapper at S = {S}", shard_cas)
+        bound_ms, bound_by = halo_bound((v, top, bot))
+        alone = graph_ms(shard_cas, 50)
+        print(f"[10 sp] K6 cas_quantize_blocked_halo {tuple(v.shape)} (the rows form's S = {S} "
+              f"shard of the flagship's output, one block, random halo rows): max|diff| vs its "
+              f"plain version {d} LSB, vs the parent's form {d_parent} LSB; eager "
+              f"{cuda_ms(shard_cas, 50):.4f} ms, on the device alone {alone:.4f} ms (parent's "
+              f"reading {PARENT_SHARD_CAS[('rows', S)]}; the parent's form on this kernel "
+              f"{graph_ms(parent_form, 50):.4f}; K3 alone on the shard "
+              f"{graph_ms(lambda: cas_cuda.cas_quantize(v, 0.2), 50):.4f}), bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / alone:.0%} of it); profiler: one "
+              f"launch of {kernel[:90]}, no other device kernel or copy; {card}")
+        require(d == 0 and d_parent == 0, f"K6's shard wrapper at S = {S} differs: {d}, "
+                f"{d_parent} LSB from its plain version and the parent's form")
+        kernels["K6"]["max_abs_err"] = max(kernels["K6"]["max_abs_err"], d)
+    del v, top, bot, got
+
     for (H, W), shards, dts in K3_SHARDS:
         for S in shards:
             for dt in (getattr(torch, name) for name in dts):
-                read = []
-                for cols in (W // S, W // S + 2):
-                    v = torch.rand((C, H, cols), generator=gen, device=dev) * 1.3 - 0.1
-                    v = to_i16_storage(v) if dt == torch.int16 else v
-                    read.append((tuple(v.shape), cuda_ms(lambda: cas_cuda.cas_quantize(v, 0.2), 50),
-                                 graph_ms(lambda: cas_cuda.cas_quantize(v, 0.2), 50),
-                                 cas_bound(v.shape, 1, v.element_size())[0]))
-                # the column form's whole shard CAS as _cas_cols runs it once
-                # the halos are in: concat, K3, crop
-                left, right = v[..., :1].contiguous(), v[..., -1:].contiguous()
-                block = v[..., 1:-1].contiguous()
-                cols_cas = lambda: cas_cuda.cas_quantize(  # noqa: E731
-                    torch.cat([left, block, right], -1), 0.2)[..., 1:-1].contiguous()
-                (sa, ea, da, ba), (sp_, ep, dp_, bp) = read
-                print(f"[10 sp] K3 cas_quantize S = {S} column shard {sp_} {dt}: kernel "
-                      f"{ep:.4f} ms eager, {dp_:.4f} on the device alone, bound {bp:.4f} "
-                      f"({bp / dp_:.0%} of it); aligned {sa}: {ea:.4f} / {da:.4f}, bound "
-                      f"{ba:.4f}; padded / aligned on the device alone {dp_ / da:.3f}; "
-                      f"concat + K3 + crop {graph_ms(cols_cas, 50):.4f} ms on the device alone "
-                      f"(50 calls each, CUDA events / one CUDA graph) on {card}")
-                del v, left, right, block
+                v, left, right = rand((C, H, W // S), dt), rand((C, H, 1), dt), rand((C, H, 1), dt)
+                shard_cas = lambda: cas_cuda.cas_quantize_cols_halo(  # noqa: E731
+                    v, left, right, 0.2)
+                parent_form = lambda: cas_cuda.cas_quantize(  # noqa: E731
+                    torch.cat([left, v, right], -1), 0.2)[..., 1:-1].contiguous()
+                d, _ = dev_diff([shard_cas()], [parent_form()])
+                kernel = one_cas_kernel(f"the column forms' shard CAS S = {S} {dt}", shard_cas)
+                bound_ms, bound_by = halo_bound((v, left, right))
+                alone = graph_ms(shard_cas, 50)
+                parent = PARENT_SHARD_CAS.get(("cols", H, W, S, str(dt)), "not read")
+                print(f"[10 sp] K3h cas_quantize_cols_halo {tuple(v.shape)} {dt} (the column "
+                      f"forms' S = {S} shard CAS, random halo columns): max|diff| vs the "
+                      f"parent's form (concat + K3 + crop) {d} LSB; eager "
+                      f"{cuda_ms(shard_cas, 50):.4f} ms, on the device alone {alone:.4f} ms "
+                      f"(parent's reading {parent}; the parent's form on this run's K3 "
+                      f"{graph_ms(parent_form, 50):.4f}; K3 alone on the block "
+                      f"{graph_ms(lambda: cas_cuda.cas_quantize(v, 0.2), 50):.4f}), bound "
+                      f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / alone:.0%} of it); profiler: "
+                      f"one launch of {kernel[:90]}, no other device kernel or copy; {card}")
+                require(d == 0, f"the column forms' shard CAS at S = {S} {dt} differs from "
+                        f"the parent's form by {d} LSB")
+                kernels["K3h"]["max_abs_err"] = max(kernels["K3h"]["max_abs_err"], d)
+                del v, left, right
         torch.cuda.empty_cache()
 
     def plan_of(form, hw, u, prec, r2c):
@@ -1230,9 +1281,9 @@ def sp_phase(dev, card, kernels, oracles, image, launches_of, zero_counters):
             form, hw, u, prec, r2c = specs[name]
             plan = cases[i][1]
             recs = [r[i] for r in ranks]
-            kid = "K6" if form == "rows" else "K3"
+            kid = "K6" if form == "rows" else "K3h"
             for rank, rec in enumerate(recs):
-                require(rec["launches"] == {"K3": 0, "K6": 0} | {kid: 1},
+                require(rec["launches"] == {"K3": 0, "K3h": 0, "K6": 0} | {kid: 1},
                         f"sp {name} S = {S} rank {rank}: launches {rec['launches']}, "
                         f"expected {kid} once")
             kernels[kid]["launches"] += S
@@ -1404,13 +1455,19 @@ def run(pool) -> int:
         return cas_cuda.cas_parity_planes_u2(U, to_i16_storage(O) if U.dtype == torch.int16
                                              else O, sharpen)
 
-    def blocked_bound(v, bh):
-        """K6 reads v and its 2*C*nb*W halo rows, writes C*H*W uint8."""
-        H, W = v.shape[-2:]
-        halo = 2 * (v.numel() // (H * W)) * -(-H // bh) * W * 4
-        return bound(v.numel() * 5 + halo, v.numel() * CAS_OPS_PER_PIXEL)
+    def blocked_args(case, dt):
+        """(v, top, bot, bh): K6's arguments, v and random halo rows (not
+        v's own rows, so a kernel that ignored them would differ)."""
+        (c, H, W), bh = case
+        v, top, bot = planes((c, H, W), 1, dt) + planes((c, -(-H // bh), W), 2, dt)
+        return v, top, bot, bh
 
-    k3_same = ("K3", lambda v, bh, s: cas_cuda.cas_quantize(v, s))
+    def cols_halo_args(case, dt):
+        """(v, left, right): K3h's arguments, v and random halo columns."""
+        c, H, W = case
+        return tuple(planes((c, H, W), 1, dt) + planes((c, H, 1), 2, dt))
+
+    k3_same = ("K3", lambda v, bh, s: cas_cuda.cas_quantize(v, s))  # K7's yardstick
 
     def quant_bound(v):
         """A copy-quantize probe reads v once and writes as many uint8."""
@@ -1486,13 +1543,26 @@ def run(pool) -> int:
                    (2, 37, 200), (2, 65, 131), (2, 21, 202), (2, 13, 132), (2, 64, 136),
                    (2, 130, 129), (1, 1, 70), (1, 1, 129), (2, 40, 1), (1, 1, 1)]
             + [((2, 37, 200), "misaligned"), ((C, 2160, 3840), "misaligned")]
-            + [(batch_planes[0], 1080, 1920)]
-            # the sp column forms' shard blocks (one halo column on each
-            # side: W/S + 2) at S = 1, 2, 4, flagship and u=3 720p
-            + [(C, H, W // S + 2) for (H, W), shards, _ in K3_SHARDS[:2] for S in shards],
+            + [(batch_planes[0], 1080, 1920)],
             args=lambda case, dt: image_args(case, dt, 1),
             bound=lambda a: cas_bound(a[0].shape, 1, a[0].element_size()),
             exact=True,
+        ),
+        "K3h": dict(
+            name="cas_quantize_cols_halo", fn=cas_cuda.cas_quantize_cols_halo,
+            plain=cas_cuda.cas_quantize_cols_halo_reference,
+            source="vkresample_tpu_torch/csrc/cas_rows.cu",
+            replaces="vkresample_tpu/ops/cas_pallas.py:543",
+            # the sp column forms' shard blocks (W/S columns, one halo column
+            # on each side by pointer) at S = 1, 2, 4, flagship and u=3 720p,
+            # then W % 4 != 0, W % 8 != 0, H off the band, a single column
+            # and a single pixel
+            cases=[(C, H, W // S) for (H, W), shards, _ in K3_SHARDS[:2] for S in shards]
+            + [(2, 37, 201), (2, 37, 200), (2, 65, 131), (2, 40, 1), (1, 1, 1)],
+            args=cols_halo_args,
+            bound=halo_bound,
+            exact=True,
+            vs=("K3 on the block", lambda v, left, right, s: cas_cuda.cas_quantize(v, s), None),
         ),
         "K4": dict(
             name="cas_parity_grid_planes", fn=cas_cuda.cas_parity_grid_planes,
@@ -1542,17 +1612,23 @@ def run(pool) -> int:
         ),
         "K6": dict(
             name="cas_quantize_blocked", wrapper=cas_cuda.cas_quantize_blocked,
-            fn=lambda v, bh, s: cas_cuda.cas_quantize_blocked(v, s, bh),
-            plain=lambda v, bh, s: cas_cuda.cas_quantize_blocked_reference(
-                v, *cas_cuda.blocked_halo_rows(v, bh), bh, s),
-            source="vkresample_tpu_torch/csrc/cas_blocked.cu",
+            fn=cas_cuda.cas_quantize_blocked_rows,
+            plain=cas_cuda.cas_quantize_blocked_reference,
+            source="vkresample_tpu_torch/csrc/cas_rows.cu",
             replaces="vkresample_tpu/ops/cas_pallas.py:2427",
-            cases=[((C, 2048, 4096), 64), ((C, 2160, 3840), 64)]
-            + [((2, 37, 201), bh) for bh in (1, 7, 64)],
+            # the A/B frame at bh = 64, the sp rows form's flagship shards as
+            # one block (S = 2, 4), K3's route shape and an odd one at bh 1,
+            # 7 and 64, a ragged last block on the 16-byte staging, bh past
+            # H and a single pixel
+            cases=[((C, 2048, 4096), 64), ((C, 1024, 4096), 1024), ((C, 512, 4096), 512)]
+            + [(shape, bh) for shape in ((C, 2160, 3840), (2, 37, 201)) for bh in (1, 7, 64)]
+            + [((2, 130, 136), 100), ((2, 37, 201), 50), ((1, 1, 1), 1)],
             dtypes=(torch.float32,),
-            args=lambda case, dt: (planes(case[0], 1, dt)[0], case[1]),
-            bound=lambda a: blocked_bound(*a),
-            vs=k3_same + (1,),
+            args=blocked_args,
+            bound=halo_bound,
+            exact=True,
+            vs=("K3", lambda v, top, bot, bh, s: cas_cuda.cas_quantize(v, s), None),
+            timed=3,
         ),
         "K7": dict(
             name="cas_quantize_mono", wrapper=cas_cuda.cas_quantize_mono,
@@ -1702,7 +1778,7 @@ def run(pool) -> int:
     for kid, case in BIG_KERNEL_CASES:
         k = kernels[kid]
         for dt in (torch.int16, torch.float32):
-            args = grid_args(case, dt) if kid == "K4" else image_args(case, dt, 4 if kid == "K1" else 1)
+            args = k["args"](case, dt)
             got = call(k, "fn", args)
             d, same = dev_diff(got, plain_banded(kid, args))
             ms = cuda_ms(lambda: call(k, "fn", args), 10)
@@ -1939,11 +2015,11 @@ def run(pool) -> int:
                 k.setdefault(key, v)  # the int16 reading goes into the JSON line
     # the eager times above include each wrapper's host work, which for K4
     # takes about as long as its kernel: the device alone of the redesigned
-    # kernels K1, K2, K3, K4 and K5, printed only
-    for kid in ("K1", "K2", "K3", "K4", "K5"):
+    # kernels K1, K2, K3, K3h, K4, K5 and K6, printed only
+    for kid in ("K1", "K2", "K3", "K3h", "K4", "K5", "K6"):
         k = kernels[kid]
         for case, dt in ((case, dt) for case in k["cases"][:k.get("timed", 1)]
-                         for dt in (torch.int16, torch.float32)):
+                         for dt in k.get("dtypes", (torch.int16, torch.float32))):
             args = k["args"](case, dt)
             print(f"[6 times] {kid} {k['name']} {case} {dt}: device alone "
                   f"{graph_ms(lambda: call(k, 'fn', args), 50):.4f} ms (50 calls replayed "

@@ -64,10 +64,12 @@ def test_retired_quad_and_woven_entries_live_in_the_redesigned_kernels():
     """K1 runs K4's U = 2 instance, K3 K5's kernel at u = 1 and K2 the same
     kernel at u = 2: their entry points are defined beside those kernels,
     and the first-design sources are gone.  K10c, the copy probe of that
-    kernel's data movement, is its copy-only instance."""
+    kernel's data movement, is its copy-only instance; K6 its instance on
+    block-local bands with halo rows by pointer, and K3's column-halo entry
+    the u = 1 kernel with halo columns by pointer."""
     assert DEFINITIONS["vkr_cas_quad_u2"][0][0] == "cas_grid.cu"
-    assert DEFINITIONS["vkr_cas_woven"][0][0] == "cas_rows.cu"
-    assert DEFINITIONS["vkr_cas_parity_u2"][0][0] == "cas_rows.cu"
-    assert DEFINITIONS["vkr_copy_quantize_rows"][0][0] == "cas_rows.cu"
-    for retired in ("cas_quad.cu", "cas_woven.cu", "cas_parity.cu"):
+    for entry in ("vkr_cas_woven", "vkr_cas_parity_u2", "vkr_copy_quantize_rows",
+                  "vkr_cas_blocked", "vkr_cas_woven_halo_cols"):
+        assert DEFINITIONS[entry][0][0] == "cas_rows.cu", entry
+    for retired in ("cas_quad.cu", "cas_woven.cu", "cas_parity.cu", "cas_blocked.cu"):
         assert not os.path.exists(os.path.join(_build.CSRC_DIR, retired)), retired

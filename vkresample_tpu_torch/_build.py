@@ -43,6 +43,8 @@ ENTRY_POINTS = {
     "vkr_cas_quad_u2": [_PTR] * 8 + [_I32] * 4 + [_F32],    # P00..P11, O00..O11; C, h, Wh, is_i16
     "vkr_cas_parity_u2": [_PTR] * 4 + [_I32] * 4 + [_F32],  # U, O, E, D; C, h, W, is_i16
     "vkr_cas_woven": [_PTR] * 2 + [_I32] * 4 + [_F32],      # v, out; C, H, W, is_i16
+    # v, left, right, out; C, H, W, is_i16
+    "vkr_cas_woven_halo_cols": [_PTR] * 4 + [_I32] * 4 + [_F32],
     "vkr_cas_grid": [_PTRS] * 2 + [_I32] * 5 + [_F32],      # in[u*u], out[u*u]; u, C, h, W, is_i16
     "vkr_cas_rows_u": [_PTR] * 3 + [_I32] * 5 + [_F32],     # U, O, out; C, h, W, u, is_i16
     "vkr_cas_blocked": [_PTR] * 4 + [_I32] * 4 + [_F32],    # v, top, bot, out; C, H, W, bh

@@ -1,7 +1,7 @@
 // The per-pixel FidelityFX-CAS evaluation shared by the port's CAS kernels
-// (cas_grid.cu: K4 and K1; cas_rows.cu: K5, K3 and K2; cas_blocked.cu,
-// cas_mono.cu, ycas.cu), and its final quantize, which the copy-quantize
-// probes (copy_quantize.cu; cas_rows.cu's copy instance) run alone.
+// (cas_grid.cu: K4 and K1; cas_rows.cu: K5, K3, K2 and K6; cas_mono.cu,
+// ycas.cu), and its final quantize, which the copy-quantize probes
+// (copy_quantize.cu; cas_rows.cu's copy instance) run alone.
 //
 // With L = min(|V|, 1) (int16 Q2.14 input scaled by 1/16384 first), every
 // output pixel is the 3x3 clamp-to-edge CAS of L (VkResample.cpp:887-923):
@@ -85,8 +85,15 @@ __device__ __forceinline__ uint8_t cas_pixel_sqrt(
     float nw, float n, float ne, float w, float c, float e,
     float sw, float s, float se, float sharpen) {
   const CasRatio r = cas_ratio(nw, n, ne, w, c, e, sw, s, se);
-  // _cas_blk_kernel: -s * sqrt(max(num/den, 0)), an IEEE divide and sqrt
-  const float sc = __fmul_rn(-sharpen, __fsqrt_rn(fmaxf(__fdiv_rn(r.num, r.den), 0.0f)));
+  // _cas_blk_kernel: -s * sqrt(max(num/den, 0)), an IEEE divide and sqrt.
+  // num is +0 wherever the window holds an L of 1 on both levels (maxlen =
+  // 1) or of 0 (minlen = 0), and then the quotient and its root are +0: such
+  // lanes divide 1 and take the root of 1 instead and select +0, so that no
+  // lane sends a zero operand down the divide's or the root's slow path.
+  const bool zero = !(r.num > 0.0f);
+  const float q = __fdiv_rn(zero ? 1.0f : r.num, r.den);
+  const float root = __fsqrt_rn(zero ? 1.0f : fmaxf(q, 0.0f));
+  const float sc = __fmul_rn(-sharpen, zero ? 0.0f : root);
   return cas_out(n, w, c, e, s, sc);
 }
 
@@ -122,23 +129,6 @@ __device__ __forceinline__ void load4(float (&d)[4], const int16_t* p) {
   d[1] = clip_len((int16_t)m.y);
   d[2] = clip_len((int16_t)m.z);
   d[3] = clip_len((int16_t)m.w);
-}
-
-// 3x3 CAS of the woven window centred on tile[r][q] (row pitch kSW), for
-// the float tile kernel of cas_blocked.cu (K6), which alone uses it; kSqrt
-// picks cas_pixel_sqrt (K6's blend) over cas_pixel.
-template <int kSW, bool kSqrt = false>
-__device__ __forceinline__ uint8_t cas_at(float (*tile)[kSW], int r, int q,
-                                          float sharpen) {
-  if constexpr (kSqrt) {
-    return cas_pixel_sqrt(tile[r - 1][q - 1], tile[r - 1][q], tile[r - 1][q + 1],
-                          tile[r][q - 1], tile[r][q], tile[r][q + 1],
-                          tile[r + 1][q - 1], tile[r + 1][q], tile[r + 1][q + 1], sharpen);
-  } else {
-    return cas_pixel(tile[r - 1][q - 1], tile[r - 1][q], tile[r - 1][q + 1],
-                     tile[r][q - 1], tile[r][q], tile[r][q + 1],
-                     tile[r + 1][q - 1], tile[r + 1][q], tile[r + 1][q + 1], sharpen);
-  }
 }
 
 }  // namespace

@@ -8,13 +8,18 @@ Counterparts of vkresample_tpu/ops/cas_pallas.py:
                                                                (K5's kernel at u=2)
   K3 cas_quantize           woven CAS (cas_quantize_pallas)    csrc/cas_rows.cu
                                                                (K5's kernel at u=1)
+     cas_quantize_cols_halo K3 on a column block, its outer    csrc/cas_rows.cu
+                            columns from two halo columns      (the same, halo
+                            (the sp column forms' shard CAS,   columns by pointer)
+                            parallel/distributed.py)
   K4 cas_parity_grid_planes grid-parity CAS (u x u planes)     csrc/cas_grid.cu
   K5 cas_quantize_rows_u    fused row weave + woven CAS        csrc/cas_rows.cu
                             (integer u >= 3 rows route)
-  K6 cas_quantize_blocked   woven CAS over row blocks fed      csrc/cas_blocked.cu
-                            outside-built halo rows (f32)
-                            (cas_quantize_blocked_halo: the row-sharded
-                            sp mode's CAS, parallel/distributed.py)
+  K6 cas_quantize_blocked   woven CAS over row blocks fed      csrc/cas_rows.cu
+                            per-block halo rows (f32)          (K5's kernel at u=1,
+                            (cas_quantize_blocked_halo: the    block-local bands,
+                            row-sharded sp mode's CAS,         halo rows by pointer,
+                            parallel/distributed.py)           sqrt/divide blend)
   K7 cas_quantize_mono      woven CAS, one persistent launch   csrc/cas_mono.cu
                             with a cp.async band pipeline (f32)
 
@@ -24,9 +29,10 @@ take that image as parity planes and return uint8 planes of the same
 layout, K5 as the row-split pair (U, O) and returns the woven image, so
 the woven pre-CAS image never exists on the device.  K6 and K7 take the
 woven image in float32 only, as their JAX kernels do.  K6 runs on the
-row-sharded sp mode, each rank's rows with its neighbours' edge rows as
-the outer halos; K7 is on no route (in the JAX package only A/B scripts
-call it).  One plain version,
+row-sharded sp mode, each rank's rows as one block with its neighbours'
+edge rows as the halos, and K3's column-halo entry on the column-sharded
+forms, each rank's columns with its neighbours' edge columns; K7 is on no
+route (in the JAX package only A/B scripts call it).  One plain version,
 ``cas_quantize_reference``, holds the arithmetic; the other kernels' plain
 versions weave their inputs, call it and split the result.  K6 alone
 evaluates the blend as sqrt(num/den) with a divide (its JAX kernel's form,
@@ -37,7 +43,8 @@ kernels K8 and K9 are in ops/ycas_cuda.py.
 
 Each wrapper runs its kernel on a CUDA tensor (on the current stream; a
 launch error raises) and its plain version on a CPU tensor, and counts its
-kernel launches in ``.launches``.  K1, K2 and K3 also record in
+kernel launches in ``.launches`` (K6's, from its three wrappers, in
+``cas_quantize_blocked.launches``).  K1, K2 and K3 also record in
 ``.staging`` the staging form (``staging_form``) of their last launch.
 """
 from __future__ import annotations
@@ -177,6 +184,48 @@ def cas_quantize(v: torch.Tensor, sharpen: float) -> torch.Tensor:
 
 cas_quantize.launches = 0
 cas_quantize.staging = None
+
+
+def _check_cols_halo(v, left, right) -> None:
+    _check("woven CAS", (v,))
+    col = v.shape[:-1] + (1,)
+    _check("woven CAS halo", (v, left, right), (v.shape, col, col))
+
+
+def cas_quantize_cols_halo_reference(v, left, right, sharpen: float) -> torch.Tensor:
+    """Plain PyTorch version of K3 on a column block, on any device: the
+    woven CAS of [left | v | right] (K3's plain version), the two halo
+    columns cropped from its output."""
+    _check_cols_halo(v, left, right)
+    out = cas_quantize_reference(torch.cat([left, v, right], dim=-1), sharpen)
+    return out[..., 1:-1].contiguous()
+
+
+def cas_quantize_cols_halo(v: torch.Tensor, left: torch.Tensor, right: torch.Tensor,
+                           sharpen: float) -> torch.Tensor:
+    """Woven CAS + quantize of one column block of an image: v (..., H, W)
+    int16 Q2.14 or float32 is the block's columns, left and right (...,
+    H, 1) of v's dtype the columns west of its first and east of its last
+    (the block's own edge column at the image's sides).  The output equals
+    the whole image's CAS on the block's columns.  CUDA tensors go through
+    csrc/cas_rows.cu's kernel at u = 1, which reads the halo columns
+    through pointers (identical on every pixel to the plain version); CPU
+    tensors take the plain version."""
+    _check_cols_halo(v, left, right)
+    if v.device.type == "cpu":
+        return cas_quantize_cols_halo_reference(v, left, right, sharpen)
+    H, W = v.shape[-2:]
+    out = torch.empty(v.shape, dtype=torch.uint8, device=v.device)
+    if v.numel() == 0:
+        return out
+    _launch("vkr_cas_woven_halo_cols", v.device, v.data_ptr(), left.data_ptr(),
+            right.data_ptr(), out.data_ptr(), v.numel() // (H * W), H, W,
+            int(v.dtype == torch.int16), float(sharpen))
+    cas_quantize_cols_halo.launches += 1
+    return out
+
+
+cas_quantize_cols_halo.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -365,7 +414,7 @@ cas_quantize_rows_u.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K6: woven CAS over row blocks with outside-built halo rows (f32)
+# K6: woven CAS over row blocks with per-block halo rows (f32)
 # ---------------------------------------------------------------------------
 
 
@@ -425,41 +474,16 @@ def cas_quantize_blocked_reference(v, top, bot, bh: int, sharpen: float) -> torc
     return _stencil_u8(L, n, s, sharpen, divide=True).reshape(v.shape)
 
 
-def cas_quantize_blocked(v: torch.Tensor, sharpen: float, block_rows: int = 64) -> torch.Tensor:
-    """Blocked woven CAS + quantize of a whole image: (..., H, W) float32 ->
-    uint8 of the same shape, in blocks of block_rows rows whose halo rows
-    are gathered first (blocked_halo_rows, two row-slice copies on the
-    card); the image's own edge rows are the outer halos (clamp to edge).
-    CUDA tensors go through csrc/cas_blocked.cu, CPU tensors take the plain
-    version.  The output does not depend on block_rows.  K6's launches,
-    here and in cas_quantize_blocked_halo, count in
-    cas_quantize_blocked.launches."""
-    _check_f32("blocked CAS", v)
-    bh = _block_rows(block_rows)
-    return _blocked(v, *blocked_halo_rows(v, bh), bh, sharpen)
-
-
-def cas_quantize_blocked_halo(v: torch.Tensor, top_row: torch.Tensor, bot_row: torch.Tensor,
-                              sharpen: float, block_rows: int = 64) -> torch.Tensor:
-    """K6 on one shard of a row-sharded image: v (..., H, W) float32 is the
-    shard's rows, top_row and bot_row (..., 1, W) float32 the previous
-    shard's last row and the next shard's first (the shard's own edge row
-    at the image's top and bottom).  The output equals the whole image's
-    CAS on the shard's rows.  CUDA tensors go through csrc/cas_blocked.cu,
-    CPU tensors take the plain version."""
-    _check_f32("blocked CAS", v)
-    bh = _block_rows(block_rows)
-    edge = v.shape[:-2] + (1, v.shape[-1])
-    _check("blocked CAS halo", (v, top_row, bot_row), (v.shape, edge, edge))
-    top, bot = blocked_halo_rows(v, bh)
-    top[..., :1, :] = top_row
-    bot[..., -1:, :] = bot_row
-    return _blocked(v, top, bot, bh, sharpen)
-
-
-def _blocked(v, top, bot, bh: int, sharpen: float) -> torch.Tensor:
-    """K6's one launch site: v and its blocks' halo rows (blocked_halo_rows'
-    layout) -> uint8."""
+def cas_quantize_blocked_rows(v, top, bot, bh: int, sharpen: float) -> torch.Tensor:
+    """K6 with its kernel's own arguments, those of its plain version
+    cas_quantize_blocked_reference: v (..., H, W) float32 in blocks of bh
+    rows and the blocks' halo rows top, bot (..., ceil(H/bh), W) -> uint8
+    (..., H, W).  CUDA tensors go through csrc/cas_rows.cu's block-local
+    instance, which reads top and bot through pointers (identical on every
+    pixel to the plain version), CPU tensors take the plain version.  The
+    one launch site of K6, for the two wrappers below too: its launches
+    count in cas_quantize_blocked.launches."""
+    bh = _check_blocked(v, top, bot, bh)
     if v.device.type == "cpu":
         return cas_quantize_blocked_reference(v, top, bot, bh, sharpen)
     H, W = v.shape[-2:]
@@ -470,6 +494,41 @@ def _blocked(v, top, bot, bh: int, sharpen: float) -> torch.Tensor:
             out.data_ptr(), v.numel() // (H * W), H, W, bh, float(sharpen))
     cas_quantize_blocked.launches += 1
     return out
+
+
+def cas_quantize_blocked(v: torch.Tensor, sharpen: float, block_rows: int = 64) -> torch.Tensor:
+    """Blocked woven CAS + quantize of a whole image: (..., H, W) float32 ->
+    uint8 of the same shape, in blocks of block_rows rows whose halo rows
+    are gathered first (blocked_halo_rows, two row-slice copies on the
+    card); the image's own edge rows are the outer halos (clamp to edge).
+    The output does not depend on block_rows."""
+    _check_f32("blocked CAS", v)
+    bh = _block_rows(block_rows)
+    return cas_quantize_blocked_rows(v, *blocked_halo_rows(v, bh), bh, sharpen)
+
+
+def cas_quantize_blocked_halo(v: torch.Tensor, top_row: torch.Tensor, bot_row: torch.Tensor,
+                              sharpen: float, block_rows: int | None = None) -> torch.Tensor:
+    """K6 on one shard of a row-sharded image: v (..., H, W) float32 is the
+    shard's rows, top_row and bot_row (..., 1, W) float32 the previous
+    shard's last row and the next shard's first (the shard's own edge row
+    at the image's top and bottom).  The output equals the whole image's
+    CAS on the shard's rows.  By default the shard is one block, whose
+    halo rows top_row and bot_row are: the kernel reads them where they
+    lie, and its block-local bands still spread the shard over the card.
+    With block_rows, blocks of that many rows, their inner halo rows
+    gathered from v (blocked_halo_rows)."""
+    _check_f32("blocked CAS", v)
+    H = v.shape[-2]
+    bh = max(H, 1) if block_rows is None else _block_rows(block_rows)
+    edge = v.shape[:-2] + (1, v.shape[-1])
+    _check("blocked CAS halo", (v, top_row, bot_row), (v.shape, edge, edge))
+    if bh >= H:
+        return cas_quantize_blocked_rows(v, top_row, bot_row, bh, sharpen)
+    top, bot = blocked_halo_rows(v, bh)
+    top[..., :1, :] = top_row
+    bot[..., -1:, :] = bot_row
+    return cas_quantize_blocked_rows(v, top, bot, bh, sharpen)
 
 
 cas_quantize_blocked.launches = 0

@@ -9,18 +9,19 @@ parallel/launch.py::spawn (or any torch.distributed launcher) and call a
 builder on every rank:
 
   build_sp_upscale          r2c integer u: torch.fft pencils, rows in and
-                            rows out, CAS on K6 with halo rows
+                            rows out, CAS on K6 with halo rows by pointer
   build_sp_upscale_dense    r2c integer u >= 2: the row-split GEMM banks
   build_sp_upscale_staged   r2c u = 2: the staged quad's convolutions
   build_sp_upscale_grid     r2c integer u >= 2 or p/q: the staged grid
   build_sp_upscale_c2c_grid c2c integer u >= 2 or p/q: the c2c staged grid
 
 The last four take rows in and give columns out, and run K3 on the woven
-block with one halo column from each neighbour.  Each builder returns
-fn(block): block is this rank's (h/S, w, C) uint8 rows (shard_rows), and
-fn gives its (H/S, W, C) rows or (H, W/S, C) columns, the JAX package's
-in_specs and out_specs (gather_blocks joins them).  Banks are built once
-per rank and device (through core/bankcache.py) and uploaded once.
+block with one halo column from each neighbour, read by pointer.  Each
+builder returns fn(block): block is this rank's (h/S, w, C) uint8 rows
+(shard_rows), and fn gives its (H/S, W, C) rows or (H, W/S, C) columns,
+the JAX package's in_specs and out_specs (gather_blocks joins them).
+Banks are built once per rank and device (through core/bankcache.py) and
+uploaded once.
 
 Each body does one all-to-all, one halo exchange (an all_gather of every
 rank's two edge rows or columns) and at most a small all_reduce (the
@@ -34,7 +35,9 @@ jnp; -p 2 keeps its Q2.14 storage on the GEMM and staged forms, as the
 single-card routes do.  K6 takes float32 only, so the rows form runs the
 pre-CAS image in float32 at -p 0 and -p 2; -p 1 (float64) runs every form
 in float64 with the float64 banded CAS (ops/cas.py) on the haloed block,
-no kernel, as the single-card -p 1.
+no kernel, as the single-card -p 1.  The int16 and float32 shard CAS is
+one kernel launch that reads the halos where they lie: no copy of the
+shard.
 
 Every call runs inside core/config.py::fp32_matmul().  A rank's device is
 cuda:{rank % device_count} unless the builder is given one; without a card
@@ -59,13 +62,8 @@ from ..core.plan import UpscalePlan
 from ..fft import dense, staged
 from ..fft.staged import _signs, _xnyq_colsum
 from ..ops import cas as cas_ops
-from ..ops.cas_cuda import cas_quantize, cas_quantize_blocked_halo
+from ..ops.cas_cuda import cas_quantize_blocked_halo, cas_quantize_cols_halo
 from ..ops.weave import weave_grid
-
-# rows per K6 block: the kernel's grid is (W/kTX, ceil(H/bh), C)
-# (csrc/cas_blocked.cu), so a whole shard as one block would leave most SMs
-# idle
-BLOCK_ROWS = 64
 
 # ---------------------------------------------------------------------------
 # collectives, with jax.lax's semantics
@@ -175,26 +173,27 @@ def _halo_cols(x: torch.Tensor, group):
 
 
 def _cas_rows(v: torch.Tensor, sharpen: float, group) -> torch.Tensor:
-    """CAS + quantize of this rank's rows v (C, rows, W): K6 with the
-    neighbours' edge rows as its outer halos; float64 runs the banded CAS
-    on the block padded with them."""
+    """CAS + quantize of this rank's rows v (C, rows, W): K6 on the shard
+    as one block, the neighbours' edge rows its halos; float64 runs the
+    banded CAS on the block padded with them."""
     above, below = _halo_rows(v, group)
     if v.dtype == torch.float64:
         vpad = torch.cat([above, v, below], dim=-2)
         return cas_ops.cas_quantize_banded(vpad, sharpen)[..., 1:-1, :].contiguous()
-    return cas_quantize_blocked_halo(v, above.contiguous(), below.contiguous(), sharpen,
-                                     BLOCK_ROWS)
+    return cas_quantize_blocked_halo(v, above.contiguous(), below.contiguous(), sharpen)
 
 
 def _cas_cols(v: torch.Tensor, sharpen: float, group) -> torch.Tensor:
-    """CAS + quantize of this rank's columns v (C, H, cols): K3 (int16 or
-    float32; float64: the banded CAS) on [left halo | v | right halo], the
-    two halo columns cropped from its output.  Every rank holds all H rows,
-    so rows need no halo."""
+    """CAS + quantize of this rank's columns v (C, H, cols): K3's
+    column-halo entry (int16 or float32) with the neighbours' edge columns
+    as its halos; float64 runs the banded CAS on [left | v | right] and
+    crops the two halo columns.  Every rank holds all H rows, so rows need
+    no halo."""
     left, right = _halo_cols(v, group)
-    vpad = torch.cat([left, v, right], dim=-1)
-    cas = cas_ops.cas_quantize_banded if v.dtype == torch.float64 else cas_quantize
-    return cas(vpad, sharpen)[..., 1:-1].contiguous()
+    if v.dtype == torch.float64:
+        vpad = torch.cat([left, v, right], dim=-1)
+        return cas_ops.cas_quantize_banded(vpad, sharpen)[..., 1:-1].contiguous()
+    return cas_quantize_cols_halo(v, left.contiguous(), right.contiguous(), sharpen)
 
 
 def _codec(plan: UpscalePlan):
@@ -217,7 +216,8 @@ def _rows_body(x_raw, plan: UpscalePlan, banks, group, S: int, rank: int):
     """The reference tier's transform (pipeline/upscale.py::_precas_xla)
     in pencils: rfft over x on the rows, all-to-all to columns, fft over y,
     the kept rows moved to the big spectrum, ifft over y, all-to-all back
-    to rows, the kept columns moved, irfft over x, then K6 with halo rows.
+    to rows, the kept columns moved, irfft over x, then K6 with halo rows
+    (the shard one block).
     The half spectrum's w/2+1 columns are padded with zeros to a multiple
     of S so they split evenly."""
     h, w, H, W = plan.h, plan.w, plan.H, plan.W

@@ -10,8 +10,9 @@ whole (h, w, C) uint8 frame, of which each rank takes its own rows
 
   block        its output block as a numpy array (gather_blocks joins them
                along distributed.OUTPUT_AXIS[form])
-  launches     {"K3": n, "K6": n}: the CAS kernels' launch counters, set
-               to 0 just before the first call and read just after it
+  launches     {"K3": n, "K3h": n, "K6": n}: the CAS kernels' launch
+               counters (K3h: K3's column-halo entry), set to 0 just
+               before the first call and read just after it
   peak_bytes   the device's peak allocation over that call (CUDA only)
   ms           with iters > 0 on a card: ms per frame over iters calls
                after the first (CUDA events)
@@ -25,7 +26,7 @@ import time
 
 import torch
 
-from ..ops.cas_cuda import cas_quantize, cas_quantize_blocked
+from ..ops.cas_cuda import cas_quantize, cas_quantize_blocked, cas_quantize_cols_halo
 from .distributed import BUILDERS, collective_seconds, shard_rows
 
 
@@ -42,10 +43,12 @@ def sp_frames(rank: int, group, cases, device=None, iters: int = 0):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         cas_quantize.launches = cas_quantize_blocked.launches = 0
+        cas_quantize_cols_halo.launches = 0
         res = fn(block)
         if cuda:
             torch.cuda.synchronize()
-        rec = dict(launches={"K3": cas_quantize.launches, "K6": cas_quantize_blocked.launches},
+        rec = dict(launches={"K3": cas_quantize.launches, "K3h": cas_quantize_cols_halo.launches,
+                             "K6": cas_quantize_blocked.launches},
                    block=res.cpu().numpy(),
                    peak_bytes=torch.cuda.max_memory_allocated() if cuda else None)
         if iters and cuda:
