@@ -33,8 +33,12 @@ tier and the big tier beyond it) on the card at full frame sizes, and fails
               its band and strip edges, W % 4 != 0, single rows or columns
               and U and O 2 or 4 bytes off alignment, identical on every
               pixel to its plain version and to weave_rows + K3; K8 and K9
-              at both fused-y frames with the frame's y bank and at odd
-              shapes (h = 1, 37; W = 200) with T2 present and absent; K6
+              at both fused-y frames with the frame's y bank and at the
+              edges of their 128 x 128 tile (h = 1, 37, 127, 128, 129,
+              255, 300; W = 1, 126, 127, 128, 129, 200, 257; K = h + r on
+              and off multiples of 8 and 32, r = 0, 1, 2, 4; U 2 or 4
+              bytes off alignment), K9 equal to the woven K8 and one
+              launch per wrapper call on every case; K6
               (f32 only; cas_rows.cu's block-local instance) with random
               halo rows, not v's own, at the A/B frame's (3, 2048, 4096)
               bh 64, the sp rows form's flagship shards (3, 1024, 4096)
@@ -118,10 +122,12 @@ tier and the big tier beyond it) on the card at full frame sizes, and fails
               (-n 20, CUDA events), each kernel against its plain version
               (50 wrapper calls, CUDA events; K4 at its three route shapes
               and K2 and K5 at their two, and beside them, printed only,
-              the device time alone of K1, K2, K3, K3h, K4, K5 and K6: 50 calls
-              replayed from one CUDA graph, since K4's wrapper takes about
-              as long on the host as its kernel on the device), the
-              unfused forms K5, K8
+              the device time alone of K1, K2, K3, K3h, K4, K5, K6, K8 and
+              K9: 50 calls replayed from one CUDA graph, since K4's wrapper
+              takes about as long on the host as its kernel on the device;
+              K8 and K9 at both fused-y shapes, beside their unfused form's
+              and its y GEMM's device time and the fp32 FMA form's bound),
+              the unfused forms K5, K8
               and K9 replace (weave_rows + K3; torch.matmul y GEMM, Q2.14
               store in -p 2, + K2, woven for K9),
               K3 beside K6 and K7 at their shape, K10c beside K3 and K10b
@@ -228,8 +234,11 @@ time and its bound: the larger of the bytes it must move (inputs read
 once, outputs written once; K6's halo rows and K3h's halo columns
 included) over 3.35 TB/s and
 its fp32 operations (~40 per output pixel
-for the CAS, 3 for the quantize, plus 2*C*h*(h+r)*W for the fused y GEMM)
-over 67 TFLOP/s (H100 SXM).  No single PyTorch call computes CAS, with or
+for the CAS, 3 for the quantize) over 67 TFLOP/s (H100 SXM); for the fused
+y GEMM + CAS kernels, also the y GEMM in their form, 3 TF32 products per
+multiply-add (3 * 2*C*h*(h+r)*W operations) over the 495 TFLOP/s TF32
+tensor-core peak, the larger of that and the CAS's time (phase 6 prints
+the same GEMM at the fp32 FMA rate beside it).  No single PyTorch call computes CAS, with or
 without the GEMM, or the truncating uint8 quantize, so library_ms is null.
 It imports nothing of JAX.  The last stdout line is
 the result JSON.
@@ -250,6 +259,7 @@ MIN_IDENTICAL_VS_Q214_ROUTE = 0.995  # fused y vs the -p 2 rows route (O Q2.14 t
 C = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores (K8, K9)
 CAS_OPS_PER_PIXEL = 40  # cas_common.cuh: clip, min/max tree, blend, quantize
 QUANT_OPS_PER_PIXEL = 3  # cas_common.cuh::quantize_u8: multiply, two clamps
 
@@ -411,14 +421,22 @@ def halo_bound(a):
                  v.numel() * CAS_OPS_PER_PIXEL)
 
 
-def ycas_bound(U, T2, YT):
+def ycas_bound(U, T2, YT, tensor_cores=True):
     """Bound of a fused y-GEMM + CAS kernel: U, T2 and YT read once, 2*C*h*W
-    uint8 written; the y GEMM's 2*C*h*(h+r)*W operations plus the CAS."""
+    uint8 written; the y GEMM in the kernels' form, 3 TF32 products per
+    multiply-add (3 * 2*C*h*(h+r)*W operations) over the TF32 tensor-core
+    peak, beside the CAS's fp32 operations over the fp32 peak (other units:
+    the larger of the two).  tensor_cores=False: the form before, the
+    GEMM's 2*C*h*(h+r)*W operations plus the CAS's at the fp32 FMA rate."""
     h, K = YT.shape
     chw = U.numel()
     n_bytes = (chw * U.element_size() + (0 if T2 is None else T2.numel() * 4)
                + YT.numel() * 4 + 2 * chw)
-    return bound(n_bytes, 2 * chw * K + 2 * chw * CAS_OPS_PER_PIXEL)
+    if not tensor_cores:
+        return bound(n_bytes, 2 * chw * K + 2 * chw * CAS_OPS_PER_PIXEL)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(3 * 2 * chw * K / TF32_OPS_PER_S, 2 * chw * CAS_OPS_PER_PIXEL / FP32_OPS_PER_S)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def fused_y_fn(plan, dev, kid: str):
@@ -1385,7 +1403,12 @@ def run(pool) -> int:
     from vkresample_tpu_torch.ops.weave import weave_grid_u8, weave_rows_u8
     from vkresample_tpu_torch.oracle.numpy_ref import upscale_oracle
     from vkresample_tpu_torch.pipeline.timing import time_amortized
-    from vkresample_tpu_torch.pipeline.upscale import _pipeline, make_device_banks, planes_format
+    from vkresample_tpu_torch.pipeline.upscale import (
+        _pipeline,
+        fp32_matmul,
+        make_device_banks,
+        planes_format,
+    )
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1437,23 +1460,44 @@ def run(pool) -> int:
         return (misaligned(U), misaligned(O), u) if len(case) > 2 else (U, O, u)
 
     def ycas_args(case, dt):
-        """(U, T2, YT): r None = the frame's own y bank, else a random bank
-        with r correction rows."""
-        (c, h, W), r = case
+        """(U, T2, YT) of case ((c, h, W), r) or ((c, h, W), r, "misaligned")
+        for a U 2 or 4 bytes past a 16-byte boundary: r None = the frame's
+        own y bank, else a random bank with r correction rows."""
+        (c, h, W), r = case[:2]
         if r is None:
             YT = ybank(h, W // 2)
         else:
             YT = torch.randn((h, h + r), generator=gen, device=dev) * (0.6 / (h + r) ** 0.5)
         r = YT.shape[1] - h
         T2 = torch.rand((c, r, W), generator=gen, device=dev) * 0.1 - 0.05 if r else None
-        return planes((c, h, W), 1, dt)[0], T2, YT
+        U = planes((c, h, W), 1, dt)[0]
+        return (misaligned(U) if len(case) > 2 else U), T2, YT
+
+    def ycas_gemm(U, T2, YT):
+        """The unfused form's y GEMM: torch.matmul (cuBLAS) in full fp32."""
+        with fp32_matmul():
+            return ycas_cuda.ycas_odd_rows_reference(U, T2, YT)[1]
 
     def ycas_unfused(U, T2, YT, sharpen):
-        """The unfused form of K8: the torch.matmul y GEMM (O stored as Q2.14
-        in -p 2, as the rows route does) + K2."""
-        O = ycas_cuda.ycas_odd_rows_reference(U, T2, YT)[1]
+        """The unfused form of K8: the cuBLAS y GEMM (O stored as Q2.14 in
+        -p 2, as the rows route does) + K2."""
+        O = ycas_gemm(U, T2, YT)
         return cas_cuda.cas_parity_planes_u2(U, to_i16_storage(O) if U.dtype == torch.int16
                                              else O, sharpen)
+
+    # K8 and K9: the route shapes with their frames' y banks, then the 128 x
+    # 128 tile's band edges (h = 127, 128, 129, 255) and strip edges (W =
+    # 126, 127, 128, 129, 257; W % 8 != 0 stages int16 per element), K = h +
+    # r on and off multiples of 8 and 32 with r = 0, 1, 2, 4, U 2 or 4 bytes
+    # past a 16-byte boundary, single rows and columns
+    ycas_edges = (
+        [((2, 37, 200), 0), ((2, 37, 200), 2), ((2, 1, 200), 1), ((2, 1, 200), 0)]
+        + [((2, h, 200), r) for h, r in ((127, 0), (128, 1), (129, 2), (255, 1))]
+        + [((2, 40, W), r) for W, r in ((126, 1), (127, 0), (128, 2), (129, 1), (257, 1))]
+        + [((2, 124, 256), 4), ((2, 126, 384), 2)]
+        + [((2, 130, 264), 1, "misaligned"), ((C, 1080, 2880), None, "misaligned"),
+           ((2, 37, 200), 2, "misaligned")]
+        + [((2, 1, 1), 0), ((2, 1, 1), 2), ((2, 300, 1), 1)])
 
     def blocked_args(case, dt):
         """(v, top, bot, bh): K6's arguments, v and random halo rows (not
@@ -1649,18 +1693,18 @@ def run(pool) -> int:
             plain=ycas_cuda.ycas_parity_u2_reference,
             source="vkresample_tpu_torch/csrc/ycas.cu",
             replaces="vkresample_tpu/ops/ycas_pallas.py:406",
-            cases=[((C, 1080, 2880), None), ((C, 1024, 4096), None), ((2, 37, 200), 0),
-                   ((2, 37, 200), 2), ((2, 1, 200), 1), ((2, 1, 200), 0)],
+            cases=[((C, 1080, 2880), None), ((C, 1024, 4096), None)] + ycas_edges,
             args=ycas_args, bound=lambda a: ycas_bound(*a), unfused=ycas_unfused,
+            timed=2,
         ),
         "K9": dict(
             name="ycas_u2", fn=ycas_cuda.ycas_u2, plain=ycas_cuda.ycas_u2_reference,
             source="vkresample_tpu_torch/csrc/ycas.cu",
             replaces="vkresample_tpu/ops/ycas_pallas.py:509",
-            cases=[((C, 1024, 4096), None), ((C, 1080, 2880), None), ((2, 37, 200), 0),
-                   ((2, 37, 200), 2), ((2, 1, 200), 1)],
+            cases=[((C, 1024, 4096), None), ((C, 1080, 2880), None)] + ycas_edges,
             args=ycas_args, bound=lambda a: ycas_bound(*a),
             unfused=lambda *a: weave_rows_u8(*ycas_unfused(*a)),
+            timed=2,
         ),
         "K10a": dict(
             name="copy_quantize_tile", wrapper=quantize_cuda.copy_quantize_tile,
@@ -1754,6 +1798,22 @@ def run(pool) -> int:
                 require(d <= TOL_LSB and same >= MIN_IDENTICAL,
                         f"{kid} disagrees with its plain version at {case}")
                 k["max_abs_err"] = max(k["max_abs_err"], d)
+
+    # K8 and K9 are one template: on every case K9 is the woven K8, and each
+    # wrapper call launches its kernel once
+    for case in kernels["K8"]["cases"]:
+        for dt in (torch.float32, torch.int16):
+            args = ycas_args(case, dt)
+            before = (ycas_cuda.ycas_parity_u2.launches, ycas_cuda.ycas_u2.launches)
+            E, D = ycas_cuda.ycas_parity_u2(*args, 0.2)
+            woven = ycas_cuda.ycas_u2(*args, 0.2)
+            torch.cuda.synchronize()
+            after = (ycas_cuda.ycas_parity_u2.launches, ycas_cuda.ycas_u2.launches)
+            require(after == (before[0] + 1, before[1] + 1),
+                    f"K8/K9 at {case}: launches {before} -> {after}")
+            require(torch.equal(weave_rows_u8(E, D), woven), f"K9 is not the woven K8 at {case}")
+    print(f"[3 kernels] K9 equals the woven K8 at all {len(kernels['K8']['cases'])} K8 cases, "
+          "int16 and f32, one launch per call")
 
     # 3, the big tier's shapes: K1, K4 and K3 where the staged routes and the
     # reference tier above the cap give them planes 4-16x larger, against
@@ -2004,8 +2064,10 @@ def run(pool) -> int:
             plain_ms = cuda_ms(lambda: call(k, "plain", args), 10)
             bound_ms, bound_by = k["bound"](args)
             extra = ""
+            if kid in ("K8", "K9"):
+                extra = f", fp32 FMA form's bound {ycas_bound(*args, tensor_cores=False)[0]:.4f} ms"
             if "unfused" in k:
-                extra = f", unfused form {cuda_ms(lambda: call(k, 'unfused', args), 50):.4f} ms"
+                extra += f", unfused form {cuda_ms(lambda: call(k, 'unfused', args), 50):.4f} ms"
             elif "vs" in k:
                 extra = f", {k['vs'][0]} {cuda_ms(lambda: call(k, 'vs', args), 50):.4f} ms"
             print(f"[6 times] {kid} {k['name']} {case} {dt}: kernel {ms:.4f} ms, plain "
@@ -2015,15 +2077,20 @@ def run(pool) -> int:
                 k.setdefault(key, v)  # the int16 reading goes into the JSON line
     # the eager times above include each wrapper's host work, which for K4
     # takes about as long as its kernel: the device alone of the redesigned
-    # kernels K1, K2, K3, K3h, K4, K5 and K6, printed only
-    for kid in ("K1", "K2", "K3", "K3h", "K4", "K5", "K6"):
+    # kernels K1, K2, K3, K3h, K4, K5, K6, K8 and K9, printed only; for K8
+    # and K9 also their unfused form's and its y GEMM's alone
+    for kid in ("K1", "K2", "K3", "K3h", "K4", "K5", "K6", "K8", "K9"):
         k = kernels[kid]
         for case, dt in ((case, dt) for case in k["cases"][:k.get("timed", 1)]
                          for dt in k.get("dtypes", (torch.int16, torch.float32))):
             args = k["args"](case, dt)
+            extra = ""
+            if kid in ("K8", "K9"):
+                extra = (f"; unfused form {graph_ms(lambda: call(k, 'unfused', args), 50):.4f} "
+                         f"ms, its y GEMM {graph_ms(lambda: ycas_gemm(*args), 50):.4f} ms")
             print(f"[6 times] {kid} {k['name']} {case} {dt}: device alone "
-                  f"{graph_ms(lambda: call(k, 'fn', args), 50):.4f} ms (50 calls replayed "
-                  f"from one CUDA graph) on {card}")
+                  f"{graph_ms(lambda: call(k, 'fn', args), 50):.4f} ms{extra} (50 calls "
+                  f"replayed from one CUDA graph) on {card}")
     grid_u8 = [torch.randint(0, 256, (C, 720, 1280), generator=gen, device=dev,
                              dtype=torch.uint8) for _ in range(9)]
     ms = cuda_ms(lambda: weave_grid_u8(grid_u8, 3), 50)

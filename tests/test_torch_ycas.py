@@ -22,6 +22,7 @@ from vkresample_tpu_torch.fft import dense
 from vkresample_tpu_torch.ops import cas
 from vkresample_tpu_torch.ops.cas_cuda import cas_parity_planes_u2_reference
 from vkresample_tpu_torch.ops.ycas_cuda import (
+    ycas_bank_padded,
     ycas_odd_rows_reference,
     ycas_parity_u2,
     ycas_parity_u2_reference,
@@ -255,14 +256,116 @@ def test_fused_wrappers_reject_bad_inputs():
             fn(U.double(), T2, YT, 0.2)
 
 
+def tf32_rna(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds (csrc/ycas.cu's
+    tf32_rna): to nearest, ties away from zero, the 13 low mantissa bits
+    cleared."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def test_tf32_rna_rounds_as_cvt_rna():
+    """tf32_rna keeps 10 mantissa bits, rounding to nearest with ties away
+    from zero (cvt.rna.tf32.f32), on both signs."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, 1 + ulp / 2 - 2.0 ** -23, 1 + 3 * ulp / 2, 1 + ulp / 4,
+                      -(1 + ulp / 2), 0.0, 3.0], dtype=torch.float32)
+    want = torch.tensor([1 + ulp, 1, 1 + 2 * ulp, 1, -(1 + ulp), 0.0, 3.0])
+    assert torch.equal(tf32_rna(x), want)
+    y = torch.from_numpy(np.random.default_rng(3).standard_normal(1000).astype(np.float32))
+    assert not (tf32_rna(y).view(torch.int32) & 0x1FFF).any()
+    assert ((tf32_rna(y) - y).abs() <= y.abs() * 2.0 ** -11).all()
+
+
+@pytest.mark.parametrize("h,r", [(8, 1), (37, 0), (37, 2), (1, 5)])
+def test_ycas_bank_padded_layout(h, r):
+    """The kernels' bank: YT's U columns at 0 and its T2 columns at h rounded
+    up to 4, rows of a multiple of 4, zero elsewhere; the wrappers make it
+    once per bank tensor and again after an in-place change."""
+    from vkresample_tpu_torch.ops.ycas_cuda import _bank_padded
+
+    YT = torch.from_numpy(np.random.default_rng(h + r).standard_normal((h, h + r))
+                          .astype(np.float32))
+    b = ycas_bank_padded(YT)
+    hp, rp = -(-h // 4) * 4, -(-r // 4) * 4
+    assert b.shape == (h, hp + rp) and b.dtype == torch.float32
+    assert torch.equal(torch.cat([b[:, :h], b[:, hp:hp + r]], dim=-1), YT)
+    assert not b[:, h:hp].any() and not b[:, hp + r:].any()
+    kept = _bank_padded(YT)
+    assert torch.equal(kept, b) and _bank_padded(YT) is kept
+    YT.mul_(2)
+    assert torch.equal(_bank_padded(YT), 2 * b)
+
+
+def _odd_rows_3xtf32(U, T2, YT, chunk=32):
+    """The y GEMM in the kernels' numerical form: U dequantized, the bank as
+    the kernels read it (ycas_bank_padded), every value split into TF32 hi
+    + lo, the U rows then the T2 rows in 32-deep chunks, each chunk lo.hi +
+    hi.lo + hi.hi in float32 into a fresh sum that is added to O."""
+    h = U.shape[-2]
+    Uf = cas.from_i16_storage(U) if U.dtype == torch.int16 else U
+    bank = ycas_bank_padded(YT)
+    O = torch.zeros(U.shape, dtype=torch.float32)
+    for B, kbase in ((Uf, 0), (T2, -(-h // 4) * 4)):
+        if B is None:
+            continue
+        for k0 in range(0, B.shape[-2], chunk):
+            k1 = min(k0 + chunk, B.shape[-2])
+            ah = tf32_rna(bank[:, kbase + k0:kbase + k1])
+            al = tf32_rna(bank[:, kbase + k0:kbase + k1] - ah)
+            bh = tf32_rna(B[..., k0:k1, :])
+            bl = tf32_rna(B[..., k0:k1, :] - bh)
+            O = O + ((al @ bh + ah @ bl) + ah @ bh)
+    return Uf, O
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("h,w", [(136, 180), (270, 360)])
+def test_3xtf32_form_meets_the_bar(h, w, dtype):
+    """The kernels' 3xTF32 y GEMM, emulated in torch on a real bank and a
+    seeded frame's x pass, gives the plain version's CAS output within 1
+    LSB on >= 99.9 % of pixels; its O is within 2^-19 of the float64 GEMM
+    and no further from it than the float32 GEMM's.  TF32 alone (hi.hi) is
+    over 2^-14 away."""
+    plan = UpscalePlan(h=h, w=w, upscale=2.0)
+    banks = {k: torch.from_numpy(v.astype(np.float32))
+             for k, v in dense.r2c_rows_banks(plan).items()}
+    img = np.random.default_rng(h + w).integers(0, 256, (3, h, w), np.uint8)
+    U, T2 = dense.r2c_x_only(torch.from_numpy(img), banks)
+    if dtype == "int16":
+        U = cas.to_i16_storage(U)
+    YT = torch.from_numpy(dense.ycas_bank(plan))
+    Uf, O = _odd_rows_3xtf32(U, T2, YT)
+    want_O = ycas_odd_rows_reference(U, T2, YT)[1]
+    Y64 = YT.double()
+    O64 = Y64[:, :h] @ Uf.double() + Y64[:, h:] @ T2.double()
+    err = (O.double() - O64).abs().max()
+    assert err <= 2.0 ** -19 and err <= (want_O.double() - O64).abs().max()
+    got = cas_parity_planes_u2_reference(Uf, O, 0.2)
+    dmax, same = _agree(torch.stack(got).numpy(),
+                        torch.stack(ycas_parity_u2_reference(U, T2, YT, 0.2)).numpy())
+    assert dmax <= 1 and same >= MIN_IDENTICAL, (dmax, same)
+    tf32_only = torch.matmul(tf32_rna(YT[:, :h]), tf32_rna(Uf)) + torch.matmul(
+        tf32_rna(YT[:, h:]), tf32_rna(T2))
+    assert (tf32_only.double() - O64).abs().max() > 2.0 ** -14
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
 
-def _cuda_case(h, W, r, dtype, seed):
+def _misaligned(p):
+    """p as a contiguous view one element (2 or 4 bytes) past the start of
+    its buffer, as chip_smoke.py phase 3 makes it."""
+    buf = torch.empty(p.numel() + 1, dtype=p.dtype, device=p.device)
+    buf[1:].copy_(p.reshape(-1))
+    return buf[1:].view(p.shape)
+
+
+def _cuda_case(h, W, r, dtype, seed, misaligned=False):
     """Seeded inputs on the card: the frame's own y bank where (h, W/2, u=2)
-    is a row-split plan with r = 1, else a random bank."""
+    is a row-split plan with r = 1, else a random bank; U 2 or 4 bytes past
+    a 16-byte boundary if misaligned."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     U = torch.rand((3, h, W), generator=g, device="cuda") * 1.3 - 0.1
     if h % 2 == 0 and W % 2 == 0 and r == 1:
@@ -271,19 +374,35 @@ def _cuda_case(h, W, r, dtype, seed):
         YT = torch.randn((h, h + r), generator=g, device="cuda") * (0.6 / (h + r) ** 0.5)
     T2 = torch.rand((3, r, W), generator=g, device="cuda") * 0.1 - 0.05 if r else None
     U = cas.to_i16_storage(U) if dtype == torch.int16 else U
-    return U, T2, YT.to("cuda").contiguous()
+    return _misaligned(U) if misaligned else U, T2, YT.to("cuda").contiguous()
+
+
+# (h, W, r, misaligned U): the route shapes; the 128 x 128 tile's band edges
+# (h = 127, 128, 129, 255) and strip edges (W = 126, 127, 128, 129, 257; W %
+# 8 != 0 stages int16 per element); K = h + r off multiples of 8 and 32 and
+# on them (16-byte YT rows), r = 0, 1, 2; U 2 or 4 bytes past a 16-byte
+# boundary; single rows and columns
+CUDA_CASES = [
+    (1080, 2880, 1, False), (1024, 4096, 1, False), (37, 200, 0, False), (37, 200, 2, False),
+    (1, 200, 1, False), (1, 1, 0, False),
+    (127, 200, 0, False), (128, 256, 1, False), (129, 130, 2, False), (255, 129, 1, False),
+    (124, 256, 4, False), (126, 384, 2, False), (40, 126, 1, False), (40, 127, 0, False),
+    (40, 128, 2, False), (40, 129, 1, False), (40, 257, 1, False),
+    (130, 264, 1, True), (1080, 2880, 1, True), (37, 200, 2, True),
+    (1, 1, 2, False), (1, 300, 0, False), (300, 1, 1, False),
+]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
-@pytest.mark.parametrize("h,W,r", [(1080, 2880, 1), (1024, 4096, 1), (37, 200, 0),
-                                   (37, 200, 2), (1, 200, 1), (1, 1, 0)])
-def test_cuda_fused_kernels_match_plain_versions(h, W, r, dtype):
+@pytest.mark.parametrize("h,W,r,mis", CUDA_CASES)
+def test_cuda_fused_kernels_match_plain_versions(h, W, r, mis, dtype):
     """On the card: K8 and K9 against their plain versions (<= 1 LSB,
-    >= 99.9 % identical), K9 the woven K8."""
+    >= 99.9 % identical), K9 the woven K8, one launch each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU form)")
-    U, T2, YT = _cuda_case(h, W, r, dtype, seed=h + W + r)
+    U, T2, YT = _cuda_case(h, W, r, dtype, seed=h + W + r, misaligned=mis)
+    assert mis == (U.data_ptr() % 16 != 0)
     before = (ycas_parity_u2.launches, ycas_u2.launches)
     E, D = ycas_parity_u2(U, T2, YT, 0.2)
     woven = ycas_u2(U, T2, YT, 0.2)

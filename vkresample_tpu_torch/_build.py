@@ -49,8 +49,8 @@ ENTRY_POINTS = {
     "vkr_cas_rows_u": [_PTR] * 3 + [_I32] * 5 + [_F32],     # U, O, out; C, h, W, u, is_i16
     "vkr_cas_blocked": [_PTR] * 4 + [_I32] * 4 + [_F32],    # v, top, bot, out; C, H, W, bh
     "vkr_cas_mono": [_PTR] * 2 + [_I32] * 4 + [_F32],       # v, out; C, H, W, bh
-    "vkr_ycas_parity_u2": [_PTR] * 5 + [_I32] * 5 + [_F32],  # U, T2, YT, E, D; C, h, W, r, is_i16
-    "vkr_ycas_u2": [_PTR] * 4 + [_I32] * 5 + [_F32],        # U, T2, YT, out; C, h, W, r, is_i16
+    "vkr_ycas_parity_u2": [_PTR] * 5 + [_I32] * 5 + [_F32],  # U, T2, YTp, E, D; C, h, W, r, is_i16
+    "vkr_ycas_u2": [_PTR] * 4 + [_I32] * 5 + [_F32],        # U, T2, YTp, out; C, h, W, r, is_i16
     "vkr_copy_quantize_tile": [_PTR] * 2 + [_I32] * 3,      # v, out; C, H, W
     "vkr_copy_quantize_mono": [_PTR] * 2 + [_I32] * 4,      # v, out; C, H, W, bh
     "vkr_copy_quantize_rows": [_PTR] * 2 + [_I32] * 3,      # v, out; C, H, W

@@ -12,9 +12,14 @@ y-Nyquist correction rows T2 (..., r, W) float32 or None, and the y bank YT
 (h, h + r) float32 of fft/dense.py::ycas_bank.  They compute the odd output
 rows O = YT[:, :h] @ U + YT[:, h:] @ T2 in float32 (U dequantized, O never
 Q2.14-rounded) and the CAS of the woven pair (U, O), so neither O nor the
-woven pre-CAS image reaches device memory.  Every h, W >= 1 runs: the TPU
-kernels' strip width, band height, halo and support gate are TPU tiling and
-have no counterpart.  No route calls them (as in the JAX package): they are
+woven pre-CAS image reaches device memory.  On the card the GEMM runs on
+the tensor cores in 3xTF32 (each operand split into TF32 hi + lo, lo.hi +
+hi.lo + hi.hi summed in float32; csrc/ycas.cu), within the float32
+GEMM's error of the float64 product; the plain versions use torch.matmul
+in float32.  The kernels read the bank padded, ycas_bank_padded(YT), which
+the wrappers make once per bank tensor and keep on it.  Every h, W >= 1
+and r >= 0 runs: the TPU kernels' strip width, band height, halo and
+support gate are TPU tiling and have no counterpart.  No route calls them (as in the JAX package): they are
 entry points of their own, held against the rows route (y GEMM + K2).
 
 Each wrapper runs its kernel on CUDA tensors (on the current stream; a
@@ -76,11 +81,35 @@ def ycas_u2_reference(U, T2, YT, sharpen: float) -> torch.Tensor:
     return weave_rows_u8(*ycas_parity_u2_reference(U, T2, YT, sharpen))
 
 
+def ycas_bank_padded(YT: torch.Tensor) -> torch.Tensor:
+    """The y bank YT (h, h + r) float32 as K8 and K9 read it: (h, hp + rp)
+    float32 on YT's device, hp and rp = h and r rounded up to 4, YT's first
+    h columns at 0 .. h-1 and its last r at hp .. hp+r-1, zero elsewhere,
+    so every row and both column blocks start 16 bytes aligned."""
+    h, K = YT.shape
+    r = K - h
+    hp, rp = -(-h // 4) * 4, -(-r // 4) * 4
+    out = torch.zeros((h, hp + rp), dtype=torch.float32, device=YT.device)
+    out[:, :h] = YT[:, :h]
+    out[:, hp:hp + r] = YT[:, h:]
+    return out
+
+
+def _bank_padded(YT: torch.Tensor) -> torch.Tensor:
+    """ycas_bank_padded(YT), made once per bank tensor and kept on it (made
+    again if YT was changed in place)."""
+    kept = getattr(YT, "_vkr_ycas_padded", None)
+    if kept is None or kept[0] != YT._version:
+        kept = (YT._version, ycas_bank_padded(YT))
+        YT._vkr_ycas_padded = kept
+    return kept[1]
+
+
 def _ycas_launch(entry: str, U, T2, YT, outs, r: int, sharpen: float) -> None:
     h, W = U.shape[-2:]
     _launch(entry, U.device, U.data_ptr(), None if T2 is None else T2.data_ptr(),
-            YT.data_ptr(), *(o.data_ptr() for o in outs), U.numel() // (h * W), h, W, r,
-            int(U.dtype == torch.int16), float(sharpen))
+            _bank_padded(YT).data_ptr(), *(o.data_ptr() for o in outs), U.numel() // (h * W),
+            h, W, r, int(U.dtype == torch.int16), float(sharpen))
 
 
 def ycas_parity_u2(U, T2, YT, sharpen: float):
