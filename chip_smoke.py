@@ -49,16 +49,22 @@ tier and the big tier beyond it) on the card at full frame sizes, and fails
               column forms' shard blocks (3, 2048, 4096 / S) and (3, 2160,
               3840 / S), S = 1, 2, 4, and odd and single-column blocks,
               identical on every pixel to its plain version; K7 (f32
-              only) at (3, 2048, 4096), (3, 2160, 3840) and (2, 37, 201) at
-              bh 1, 32, 128, identical to its plain version and to K3 on
-              every pixel; the copy-quantize
+              only; the persistent streaming pipeline of
+              csrc/stream_pipeline.cuh) at (3, 2048, 4096) bh 128 and 64,
+              (3, 2160, 3840), and at the pipeline's edges: bh 1, 7, 32,
+              128, 1000 and past H, W = 4100 and 4097, H = 1, W = 1, H one
+              row past a segment multiple, 24 planes, and views one float
+              off a 16-byte boundary, identical to its plain version and
+              to K3 on every pixel, each case's copy form (bulk or per
+              element) printed as its staging, each call bounded in time
+              (a hung ring fails the run); the copy-quantize
               probes K10a (the tile of K3's first design), K10b (K7's
-              band pipeline) and K10c (the copy-only instance of
+              pipeline, on K7's cases) and K10c (the copy-only instance of
               cas_rows.cu's kernel, K5's, K3's and K2's data movement),
-              f32 only, at (3, 2048, 4096), (3, 2160, 3840) and (2, 37,
-              201), K10b at bh 128, 64, 32 and 1, K10c also at odd and
-              misaligned images, identical on every pixel to their plain
-              version; then the big tier's shapes, int16 and f32: K1 at 4 x
+              f32 only, K10a at (3, 2048, 4096), (3, 2160, 3840) and (2,
+              37, 201), K10c also at odd and misaligned images, identical
+              on every pixel to their plain version; then the big tier's
+              shapes, int16 and f32: K1 at 4 x
               (3, 4096, 8192) (the staged quad and the c2c grid u=2 at 8K
               -> 16K), 4 x (3, 4320, 8640) and 4 x (3, 8192, 16384), K4 at
               9 x (3, 2160, 3840), K3 at (3, 8192, 16384), identical on
@@ -122,11 +128,14 @@ tier and the big tier beyond it) on the card at full frame sizes, and fails
               (-n 20, CUDA events), each kernel against its plain version
               (50 wrapper calls, CUDA events; K4 at its three route shapes
               and K2 and K5 at their two, and beside them, printed only,
-              the device time alone of K1, K2, K3, K3h, K4, K5, K6, K8 and
-              K9: 50 calls replayed from one CUDA graph, since K4's wrapper
-              takes about as long on the host as its kernel on the device;
-              K8 and K9 at both fused-y shapes, beside their unfused form's
-              and its y GEMM's device time and the fp32 FMA form's bound),
+              the device time alone of K1, K2, K3, K3h, K4, K5, K6, K7,
+              K8, K9 and K10b: 50 calls replayed from one CUDA graph, since
+              K4's wrapper takes about as long on the host as its kernel on
+              the device; K8 and K9 at both fused-y shapes, beside their
+              unfused form's and its y GEMM's device time and the fp32 FMA
+              form's bound; K7 and K10b at (3, 2048, 4096) bh 128 and 64
+              beside K3's and K10c's on the same image, each with the bound
+              and its share),
               the unfused forms K5, K8
               and K9 replace (weave_rows + K3; torch.matmul y GEMM, Q2.14
               store in -p 2, + K2, woven for K9),
@@ -257,6 +266,7 @@ TOL_LSB = 1
 MIN_IDENTICAL = 0.999
 MIN_IDENTICAL_VS_Q214_ROUTE = 0.995  # fused y vs the -p 2 rows route (O Q2.14 there)
 C = 3
+KERNEL_TIMEOUT_S = 60  # a phase-3 kernel call, from launch to its end on the card
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 TF32_OPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores (K8, K9)
@@ -324,6 +334,21 @@ def gpu_line() -> str:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def bounded_sync(what: str, seconds: float) -> None:
+    """Wait for the current stream's work, at most `seconds`: a kernel that
+    never ends (the streaming kernels trap after ~20 s of waiting on one
+    barrier) fails the run instead of hanging it."""
+    import torch
+
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.perf_counter()
+    while not done.query():
+        require(time.perf_counter() - t0 < seconds,
+                f"{what}: the kernel did not finish within {seconds} s")
+        time.sleep(0.001)
 
 
 def cuda_ms(fn, n: int) -> float:
@@ -1511,7 +1536,31 @@ def run(pool) -> int:
         c, H, W = case
         return tuple(planes((c, H, W), 1, dt) + planes((c, H, 1), 2, dt))
 
+    # the batched path's plane counts (frames x channels in one launch):
+    # phase 7's N = 3 frames, then the folder CLI's -batch 8 and its tail of 4
+    batch_planes = [n * C for n in (BATCH_N, 8, FOLDER_FRAMES - 8)]
+
     k3_same = ("K3", lambda v, bh, s: cas_cuda.cas_quantize(v, s))  # K7's yardstick
+
+    # K7 and K10b (csrc/stream_pipeline.cuh): the A/B frame at bh 128 and 64
+    # (both timed), K3's route shape, then the pipeline's edges: bh 1, 7, 32,
+    # 128, 1000 and past H, a partial last strip with W % 4 == 0 (4100) and
+    # W % 4 != 0 (4097), H = 1, W = 1, H one row past a segment multiple,
+    # the folder CLI's batch of 8 x 3 planes, and views one float off a
+    # 16-byte boundary (the per-element copy form, also at the A/B frame)
+    mono_cases = (
+        [((C, 2048, 4096), 128), ((C, 2048, 4096), 64), ((C, 2160, 3840), 128)]
+        + [((2, 37, 201), bh) for bh in (1, 7, 32, 128, 1000)]
+        + [((2, 64, 4100), 32), ((2, 33, 4097), 7), ((1, 1, 1), 1), ((1, 1, 1), 5),
+           ((C, 1, 4096), 3), ((2, 300, 1), 1), ((2, 129, 256), 128), ((2, 129, 256), 64),
+           ((2, 65, 4096), 64), ((batch_planes[1], 512, 1024), 128)]
+        + [((2, 37, 200), 7, "misaligned"), ((C, 2048, 4096), 64, "misaligned")])
+
+    def mono_args(case, dt):
+        """(v, bh) of a K7 or K10b case (shape, bh), or (shape, bh,
+        "misaligned") for a v one element past a 16-byte boundary."""
+        v = planes(case[0], 1, dt)[0]
+        return (misaligned(v) if len(case) > 2 else v), case[1]
 
     def quant_bound(v):
         """A copy-quantize probe reads v once and writes as many uint8."""
@@ -1520,10 +1569,6 @@ def run(pool) -> int:
     def k5_unfused(U, O, u, s):
         """The unfused form K5 replaces: weave_rows + K3."""
         return cas_cuda.cas_quantize(dense.weave_rows(U, O, u), s)
-
-    # the batched path's plane counts (frames x channels in one launch):
-    # phase 7's N = 3 frames, then the folder CLI's -batch 8 and its tail of 4
-    batch_planes = [n * C for n in (BATCH_N, 8, FOLDER_FRAMES - 8)]
 
     # kernel id -> name, wrapper (fn unless given: the function whose launch
     # counter is read), kernel call, plain version, sources, argument cases
@@ -1535,7 +1580,8 @@ def run(pool) -> int:
     # LSB) it is held against in phase 3 (not when max LSB is None) and
     # timed beside in phase 6 unless it is the unfused form; unfused: the
     # unfused form it replaces, timed in phase 6; timed: how many of the
-    # first cases phase 6 times (1 unless given)
+    # first cases phase 6 times (1 unless given); beside: (label, form) whose
+    # device time alone phase 6 prints beside the kernel's, with its bound
     kernels = {
         "K1": dict(
             name="cas_parity4_planes_u2", fn=cas_cuda.cas_parity4_planes_u2,
@@ -1680,13 +1726,14 @@ def run(pool) -> int:
             plain=lambda v, bh, s: cas_cuda.cas_quantize_mono_reference(v, s),
             source="vkresample_tpu_torch/csrc/cas_mono.cu",
             replaces="vkresample_tpu/ops/cas_pallas.py:2550",
-            cases=[((C, 2048, 4096), 128), ((C, 2160, 3840), 128)]
-            + [((2, 37, 201), bh) for bh in (1, 32, 128)],
+            cases=mono_cases,
             dtypes=(torch.float32,),
-            args=lambda case, dt: (planes(case[0], 1, dt)[0], case[1]),
+            args=mono_args,
             bound=lambda a: cas_bound(a[0].shape, 1, 4),
             exact=True,
             vs=k3_same + (0,),
+            beside=k3_same,
+            timed=2,
         ),
         "K8": dict(
             name="ycas_parity_u2", fn=ycas_cuda.ycas_parity_u2,
@@ -1724,13 +1771,13 @@ def run(pool) -> int:
             plain=lambda v, bh, s: quantize_cuda.copy_quantize_reference(v),
             source="vkresample_tpu_torch/csrc/copy_quantize.cu",
             replaces="scripts/cas_split.py:57",
-            cases=[(shape, bh) for shape in ((C, 2048, 4096), (C, 2160, 3840), (2, 37, 201))
-                   for bh in (128, 64, 32, 1)],
+            cases=mono_cases,
             dtypes=(torch.float32,),
-            args=lambda case, dt: (planes(case[0], 1, dt)[0], case[1]),
+            args=mono_args,
             bound=lambda a: quant_bound(a[0]),
             exact=True,
             vs=("K7 at the same bh", lambda v, bh, s: cas_cuda.cas_quantize_mono(v, s, bh), None),
+            beside=("K10c", lambda v, bh, s: quantize_cuda.copy_quantize_rows(v)),
             timed=2,
         ),
         "K10c": dict(
@@ -1783,10 +1830,11 @@ def run(pool) -> int:
             for dt in k.get("dtypes", (torch.float32, torch.int16)):
                 args = k["args"](case, dt)
                 got = call(k, "fn", args)
-                torch.cuda.synchronize()
+                bounded_sync(f"{kid} at {case}", KERNEL_TIMEOUT_S)
                 d, same = u8_diff(got, call(k, "plain", args))
+                form = getattr(k.get("wrapper", k["fn"]), "staging", None)  # K1-K3, K7, K10b
                 print(f"[3 kernels] {kid} {k['name']} {case} {dt}: max|diff| {d} LSB, "
-                      f"identical {same:.6f}")
+                      f"identical {same:.6f}" + (f"; staging {form}" if form else ""))
                 if k.get("exact"):
                     require(d == 0, f"{kid} differs from its plain version at {case}")
                 label, _, tol = k.get("vs", (None, None, None))
@@ -2077,20 +2125,28 @@ def run(pool) -> int:
                 k.setdefault(key, v)  # the int16 reading goes into the JSON line
     # the eager times above include each wrapper's host work, which for K4
     # takes about as long as its kernel: the device alone of the redesigned
-    # kernels K1, K2, K3, K3h, K4, K5, K6, K8 and K9, printed only; for K8
-    # and K9 also their unfused form's and its y GEMM's alone
-    for kid in ("K1", "K2", "K3", "K3h", "K4", "K5", "K6", "K8", "K9"):
+    # kernels K1, K2, K3, K3h, K4, K5, K6, K7, K8, K9 and K10b, printed
+    # only; for K8 and K9 also their unfused form's and its y GEMM's alone,
+    # for K7 and K10b K3's and K10c's alone on the same image and each
+    # one's bound and share of it
+    for kid in ("K1", "K2", "K3", "K3h", "K4", "K5", "K6", "K7", "K8", "K9", "K10b"):
         k = kernels[kid]
         for case, dt in ((case, dt) for case in k["cases"][:k.get("timed", 1)]
                          for dt in k.get("dtypes", (torch.int16, torch.float32))):
             args = k["args"](case, dt)
+            alone = graph_ms(lambda: call(k, "fn", args), 50)
             extra = ""
             if kid in ("K8", "K9"):
                 extra = (f"; unfused form {graph_ms(lambda: call(k, 'unfused', args), 50):.4f} "
                          f"ms, its y GEMM {graph_ms(lambda: ycas_gemm(*args), 50):.4f} ms")
-            print(f"[6 times] {kid} {k['name']} {case} {dt}: device alone "
-                  f"{graph_ms(lambda: call(k, 'fn', args), 50):.4f} ms{extra} (50 calls "
-                  f"replayed from one CUDA graph) on {card}")
+            elif "beside" in k:
+                label, form = k["beside"]
+                other = graph_ms(lambda: form(*args, 0.2), 50)
+                b = k["bound"](args)[0]
+                extra = (f", bound {b:.4f} ms, share {b / alone:.3f}; {label} alone on the "
+                         f"same image {other:.4f} ms, share {b / other:.3f}")
+            print(f"[6 times] {kid} {k['name']} {case} {dt}: device alone {alone:.4f} "
+                  f"ms{extra} (50 calls replayed from one CUDA graph) on {card}")
     grid_u8 = [torch.randint(0, 256, (C, 720, 1280), generator=gen, device=dev,
                              dtype=torch.uint8) for _ in range(9)]
     ms = cuda_ms(lambda: weave_grid_u8(grid_u8, 3), 50)

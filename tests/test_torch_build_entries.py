@@ -73,3 +73,29 @@ def test_retired_quad_and_woven_entries_live_in_the_redesigned_kernels():
         assert DEFINITIONS[entry][0][0] == "cas_rows.cu", entry
     for retired in ("cas_quad.cu", "cas_woven.cu", "cas_parity.cu", "cas_blocked.cu"):
         assert not os.path.exists(os.path.join(_build.CSRC_DIR, retired)), retired
+
+
+def _code(name: str) -> str:
+    """A csrc file without its comments."""
+    with open(os.path.join(_build.CSRC_DIR, name)) as f:
+        return re.sub(r"//[^\n]*", "", f.read())
+
+
+def test_streaming_kernels_live_on_the_stream_pipeline():
+    """K7 and K10b keep their entry points in cas_mono.cu and
+    copy_quantize.cu, on stream_pipeline.cuh's persistent producer/consumer
+    rings of mbarrier stages, whose only block-wide barrier sets the
+    mbarriers up; the two-window band_pipeline.cuh is gone."""
+    assert DEFINITIONS["vkr_cas_mono"][0][0] == "cas_mono.cu"
+    assert DEFINITIONS["vkr_copy_quantize_mono"][0][0] == "copy_quantize.cu"
+    assert not os.path.exists(os.path.join(_build.CSRC_DIR, "band_pipeline.cuh"))
+    for name in ("cas_mono.cu", "copy_quantize.cu"):
+        assert '#include "stream_pipeline.cuh"' in _code(name), name
+        assert "band_pipeline" not in _code(name), name
+    header = _code("stream_pipeline.cuh")
+    assert header.count("__syncthreads()") == 1
+    for op in ("mbarrier.try_wait.parity", "mbarrier.arrive.expect_tx",
+               "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes",
+               "cp.async.mbarrier.arrive.noinc"):
+        assert op in header, op
+    assert "__syncthreads" not in _code("cas_mono.cu")

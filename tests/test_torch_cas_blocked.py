@@ -25,6 +25,7 @@ from vkresample_tpu_torch.ops.cas_cuda import (
     cas_quantize_mono,
     cas_quantize_mono_reference,
     cas_quantize_reference,
+    stream_form,
 )
 from vkresample_tpu_torch.oracle import numpy_ref as toracle
 
@@ -252,6 +253,34 @@ def test_wrappers_on_cpu_use_plain_versions():
     assert (cas_quantize_blocked.launches, cas_quantize_mono.launches) == before
 
 
+@pytest.mark.parametrize("shape,bh", [((1, 300, 70), 1), ((1, 300, 70), 193),
+                                      ((2, 37, 201), 1000)])
+def test_mono_takes_any_block_rows(shape, bh):
+    """K7's segment height has no cap: bh 1, past the first design's 192
+    rows and past H each give the plain version on a CPU tensor, and
+    launch nothing."""
+    v = torch.from_numpy(_pre_cas(shape, seed=41 + bh))
+    before = cas_quantize_mono.launches
+    assert torch.equal(cas_quantize_mono(v, 0.2, block_rows=bh), cas_quantize_mono_reference(v, 0.2))
+    assert cas_quantize_mono.launches == before
+
+
+@pytest.mark.parametrize("bh", [0, -1, 1.5])
+def test_mono_block_rows_is_a_positive_integer(bh):
+    with pytest.raises(ValueError, match="block_rows"):
+        cas_quantize_mono(torch.zeros((1, 8, 16)), 0.2, block_rows=bh)
+
+
+@pytest.mark.parametrize("W,v_ptr,out_ptr,form", [
+    (4096, 0x7f0000000000, 0x7f0000100000, "bulk"), (4100, 16, 4, "bulk"),
+    (4097, 16, 4, "per element"), (4096, 4, 0, "per element"), (4096, 16, 2, "per element"),
+    (1, 0, 0, "per element"), (4, 32, 8, "bulk")])
+def test_stream_form(W, v_ptr, out_ptr, form):
+    """The copy form K7 and K10b take: bulk copies where a row is whole
+    16-byte chunks and v and out are aligned, else per element."""
+    assert stream_form(W, v_ptr, out_ptr) == form
+
+
 @pytest.mark.parametrize("dtype", [torch.int16, torch.float64])
 def test_wrappers_take_float32_only(dtype):
     v = torch.zeros((1, 8, 16), dtype=dtype)
@@ -284,20 +313,34 @@ def test_wrappers_reject_bad_inputs():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 37, 201), (3, 256, 512), (1, 1, 1), (3, 2048, 4096)])
+@pytest.mark.parametrize("shape", [(2, 37, 201), (3, 256, 512), (1, 1, 1), (3, 2048, 4096),
+                                   (2, 64, 4100), (2, 33, 4097), (3, 1, 4096), (2, 300, 1),
+                                   (2, 129, 256), (24, 512, 1024)])
 def test_cuda_blocked_and_mono_kernels_match_plain_versions(shape):
     """On the card: K6 equal to its plain version on every pixel and within
     1 LSB of K3, and K7 equal to its plain version and to K3 on every
-    pixel, over several block heights."""
+    pixel, over several block heights (1, 7, 16, 32, 64, 128, 256, 1000
+    and past H), at partial strips with W % 4 == 0 and != 0, H = 1, W = 1,
+    H one row past a segment multiple and 24 planes; K7 also on a view of
+    the image one float off a 16-byte boundary (its per-element copy
+    form)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU form)")
     g = torch.Generator(device="cuda").manual_seed(sum(shape))
     v = torch.rand(shape, generator=g, device="cuda") * 1.3 - 0.1
+    buf = torch.empty(v.numel() + 1, device="cuda")
+    buf[1:].copy_(v.reshape(-1))
+    off = buf[1:].view(shape)
     k3 = cas_quantize(v, 0.2)
-    for bh in (1, 7, 16, 64, 128, 256, shape[1] + 5):
+    for bh in (1, 7, 16, 32, 64, 128, 256, 1000, shape[1] + 5):
+        k7_off = cas_quantize_mono(off, 0.2, block_rows=bh)
+        assert cas_quantize_mono.staging == "per element"
+        torch.cuda.synchronize()
+        assert torch.equal(k7_off, k3), bh
         before = (cas_quantize_blocked.launches, cas_quantize_mono.launches)
         k6 = cas_quantize_blocked(v, 0.2, block_rows=bh)
         k7 = cas_quantize_mono(v, 0.2, block_rows=bh)
+        assert cas_quantize_mono.staging == ("bulk" if shape[-1] % 4 == 0 else "per element")
         torch.cuda.synchronize()
         assert (cas_quantize_blocked.launches, cas_quantize_mono.launches) == (
             before[0] + 1, before[1] + 1)

@@ -149,6 +149,24 @@ def test_wrappers_reject_bad_inputs():
         copy_quantize(torch.zeros((1, 8, 16)), "band")
 
 
+@pytest.mark.parametrize("shape,bh", [((1, 300, 70), 1), ((1, 300, 70), 193),
+                                      ((2, 37, 201), 1000)])
+def test_mono_takes_any_block_rows(shape, bh):
+    """K10b's segment height has no cap: bh 1, past the first design's 192
+    rows and past H each give the plain version on a CPU tensor, and
+    launch nothing."""
+    v = torch.from_numpy(_pre_cas(shape, seed=43 + bh))
+    before = copy_quantize_mono.launches
+    assert torch.equal(copy_quantize_mono(v, bh), copy_quantize_reference(v))
+    assert copy_quantize_mono.launches == before
+
+
+@pytest.mark.parametrize("bh", [0, -1, 1.5])
+def test_mono_block_rows_is_a_positive_integer(bh):
+    with pytest.raises(ValueError, match="block_rows"):
+        copy_quantize_mono(torch.zeros((1, 8, 16)), bh)
+
+
 def test_wrappers_on_cpu_use_plain_version_and_count_nothing():
     """On CPU tensors every form returns the plain version (leading dims
     kept) and launches nothing; each form has its own counter."""
@@ -227,25 +245,38 @@ def test_cas_split_frame_is_quantize_of_the_woven_image(kid, bh):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 37, 201), (3, 256, 512), (1, 1, 1), (3, 2048, 4096)])
+@pytest.mark.parametrize("shape", [(2, 37, 201), (3, 256, 512), (1, 1, 1), (3, 2048, 4096),
+                                   (2, 64, 4100), (2, 33, 4097), (3, 1, 4096), (2, 300, 1),
+                                   (2, 129, 256), (24, 512, 1024)])
 def test_cuda_copy_quantize_kernels_match_plain_version(shape):
-    """On the card: K10a and K10b (bh 1, 7, 32, 64, 128) equal the plain
-    version on every pixel, one launch each on their own counter."""
+    """On the card: K10a and K10b (bh 1, 7, 32, 64, 128, 1000 and past H)
+    equal the plain version on every pixel, one launch each on their own
+    counter, at partial strips with W % 4 == 0 and != 0, H = 1, W = 1, H
+    one row past a segment multiple and 24 planes; K10b also on a view of
+    the image one float off a 16-byte boundary (its per-element copy
+    form)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU form)")
     g = torch.Generator(device="cuda").manual_seed(sum(shape))
     v = torch.rand(shape, generator=g, device="cuda") * 1.3 - 0.1
+    buf = torch.empty(v.numel() + 1, device="cuda")
+    buf[1:].copy_(v.reshape(-1))
+    off = buf[1:].view(shape)
     want = copy_quantize_reference(v)
     before = copy_quantize_tile.launches
     assert torch.equal(copy_quantize_tile(v), want)
     assert copy_quantize_tile.launches == before + 1
-    for bh in (1, 7, 32, 64, 128):
+    for bh in (1, 7, 32, 64, 128, 1000, shape[1] + 5):
         before = (copy_quantize_tile.launches, copy_quantize_mono.launches)
         got = copy_quantize_mono(v, bh)
+        assert copy_quantize_mono.staging == ("bulk" if shape[-1] % 4 == 0 else "per element")
+        got_off = copy_quantize_mono(off, bh)
+        assert copy_quantize_mono.staging == "per element"
         torch.cuda.synchronize()
         assert (copy_quantize_tile.launches, copy_quantize_mono.launches) == (
-            before[0], before[1] + 1)
+            before[0], before[1] + 2)
         assert torch.equal(got, want), bh
+        assert torch.equal(got_off, want), bh
 
 
 @pytest.mark.cuda

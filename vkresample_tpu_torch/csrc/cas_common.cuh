@@ -39,16 +39,9 @@ struct CasRatio {
   float num, den;
 };
 
-__device__ __forceinline__ CasRatio cas_ratio(
-    float nw, float n, float ne, float w, float c, float e,
-    float sw, float s, float se) {
-  const float xmin = fminf(w, e), xmax = fmaxf(w, e);
-  const float min_cross = fminf(fminf(n, s), fminf(c, xmin));
-  const float max_cross = fmaxf(fmaxf(n, s), fmaxf(c, xmax));
-  const float cmin = fminf(fminf(nw, ne), fminf(sw, se));
-  const float cmax = fmaxf(fmaxf(nw, ne), fmaxf(sw, se));
-  const float min_all = fminf(min_cross, cmin);
-  const float max_all = fmaxf(max_cross, cmax);
+// The quotient from the two-level minima and maxima of the window.
+__device__ __forceinline__ CasRatio cas_select(float min_cross, float min_all,
+                                               float max_cross, float max_all) {
   const float minlen = __fmul_rn(0.5f, __fadd_rn(min_cross, min_all));
   const float maxlen = __fmul_rn(0.5f, __fadd_rn(max_cross, max_all));
   const float a = minlen, b = __fsub_rn(1.0f, minlen);
@@ -57,17 +50,33 @@ __device__ __forceinline__ CasRatio cas_ratio(
   return {pred ? a : cq, pred ? b : d};
 }
 
+__device__ __forceinline__ CasRatio cas_ratio(
+    float nw, float n, float ne, float w, float c, float e,
+    float sw, float s, float se) {
+  const float xmin = fminf(w, e), xmax = fmaxf(w, e);
+  const float min_cross = fminf(fminf(n, s), fminf(c, xmin));
+  const float max_cross = fmaxf(fmaxf(n, s), fmaxf(c, xmax));
+  const float cmin = fminf(fminf(nw, ne), fminf(sw, se));
+  const float cmax = fmaxf(fmaxf(nw, ne), fmaxf(sw, se));
+  return cas_select(min_cross, fminf(min_cross, cmin), max_cross, fmaxf(max_cross, cmax));
+}
+
 // (int)clamp(v*255, 0, 255) as uint8: ops/cas.py::quantize_u8.
 __device__ __forceinline__ uint8_t quantize_u8(float v) {
   return (uint8_t)(int)fminf(fmaxf(__fmul_rn(v, 255.0f), 0.0f), 255.0f);
 }
 
-// out = (c + sc*(n+s+w+e)) / (1 + 4*sc), then quantize_u8.
-__device__ __forceinline__ uint8_t cas_out(float n, float w, float c, float e,
+// out = (c + sc*(n+s+w+e)) / (1 + 4*sc), before the quantize.
+__device__ __forceinline__ float cas_value(float n, float w, float c, float e,
                                            float s, float sc) {
   const float nsum = __fadd_rn(__fadd_rn(n, s), __fadd_rn(w, e));
-  return quantize_u8(__fdiv_rn(__fadd_rn(c, __fmul_rn(sc, nsum)),
-                               __fadd_rn(1.0f, __fmul_rn(4.0f, sc))));
+  return __fdiv_rn(__fadd_rn(c, __fmul_rn(sc, nsum)), __fadd_rn(1.0f, __fmul_rn(4.0f, sc)));
+}
+
+// cas_value, then quantize_u8.
+__device__ __forceinline__ uint8_t cas_out(float n, float w, float c, float e,
+                                           float s, float sc) {
+  return quantize_u8(cas_value(n, w, c, e, s, sc));
 }
 
 __device__ __forceinline__ uint8_t cas_pixel(

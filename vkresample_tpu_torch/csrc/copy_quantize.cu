@@ -14,10 +14,11 @@
 //                           tile centre quantized where that K3 evaluated
 //                           the CAS; it stages the raw values.  It stays
 //                           as the probe of that data movement.
-//   vkr_copy_quantize_mono  (K10b) cas_mono.cu's (K7's) persistent cp.async
-//                           band pipeline (band_pipeline.cuh), each lane's
-//                           centre float4 quantized where K7 evaluates the
-//                           CAS
+//   vkr_copy_quantize_mono  (K10b) cas_mono.cu's (K7's) persistent,
+//                           warp-specialized streaming pipeline
+//                           (stream_pipeline.cuh): the same units, runs,
+//                           rings and copies, each lane's centre float4
+//                           quantized where K7 evaluates the CAS
 //
 // The third form, K10c (vkr_copy_quantize_rows), is the copy-only instance
 // of cas_rows.cu's kernel, the data movement of K5, K3 and K2, and lives
@@ -34,11 +35,11 @@
 // 2048, 4096) it reads 100.7 MB and writes 25.2 MB: ~37.6 us at the 3.35
 // TB/s peak.  Both forms move what their CAS kernel moves (K10a: K3's
 // first design, which no CAS kernel runs any more), halo included (K10a
-// ~1.2 reads of each input element, K10b (R+2)/R row reads), so the gap
-// between that CAS kernel's time and its form's time is the CAS
+// ~1.2 reads of each input element, K10b two halo rows per stream), so the
+// gap between that CAS kernel's time and its form's time is the CAS
 // arithmetic.
-#include "band_pipeline.cuh"
 #include "cas_common.cuh"
+#include "stream_pipeline.cuh"
 
 namespace {
 
@@ -77,25 +78,32 @@ copy_quantize_tile_kernel(const float* __restrict__ v, uint8_t* __restrict__ out
   }
 }
 
-// K7's band pipeline with the quantize of the lane's four centre values.
+// K7's pipeline with the quantize of the lane's four centre values: every
+// row is pulled through the ring in K7's order, and only its centre float4
+// is read.
 struct QuantizeRows {
-  __device__ __forceinline__ void start(const float*, int, int) {}
+  struct Row {
+    float4 m;
+  };
 
-  __device__ __forceinline__ void row(const float* win, int j, int lane, uint8_t (&o)[4]) {
-    const float4 m = *reinterpret_cast<const float4*>(
-        win + (j + 1) * band::kPitch + band::kLeft + 4 * lane);
-    o[0] = quantize_u8(m.x);
-    o[1] = quantize_u8(m.y);
-    o[2] = quantize_u8(m.z);
-    o[3] = quantize_u8(m.w);
+  static __device__ __forceinline__ void load(Row& d, const float* p, int, int) {
+    d.m = *reinterpret_cast<const float4*>(p);
+  }
+
+  __device__ __forceinline__ void row(const Row&, const Row& c, const Row&,
+                                      uint8_t (&o)[4]) const {
+    o[0] = quantize_u8(c.m.x);
+    o[1] = quantize_u8(c.m.y);
+    o[2] = quantize_u8(c.m.z);
+    o[3] = quantize_u8(c.m.w);
   }
 };
 
 }  // namespace
 
 // C entry points (loaded with ctypes).  v: contiguous (C, H, W) float32;
-// out: contiguous (C, H, W) uint8; bh (mono): rows per band, capped at H
-// and 192.  Launch on `stream`, do not synchronise, return the first
+// out: contiguous (C, H, W) uint8; bh (mono): rows per segment, any bh >=
+// 1 (the output does not depend on it).  Launch on `stream`, do not synchronise, return the first
 // cudaError_t of the set-up calls and the launch.
 extern "C" int vkr_copy_quantize_tile(const void* v, void* out, int C, int H, int W,
                                       void* stream) {
@@ -110,5 +118,5 @@ extern "C" int vkr_copy_quantize_tile(const void* v, void* out, int C, int H, in
 
 extern "C" int vkr_copy_quantize_mono(const void* v, void* out, int C, int H, int W, int bh,
                                       void* stream) {
-  return band::launch(v, out, C, H, W, bh, QuantizeRows{}, stream);
+  return ring::launch(v, out, C, H, W, bh, QuantizeRows{}, stream);
 }

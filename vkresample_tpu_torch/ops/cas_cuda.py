@@ -21,7 +21,8 @@ Counterparts of vkresample_tpu/ops/cas_pallas.py:
                             row-sharded sp mode's CAS,         halo rows by pointer,
                             parallel/distributed.py)           sqrt/divide blend)
   K7 cas_quantize_mono      woven CAS, one persistent launch   csrc/cas_mono.cu
-                            with a cp.async band pipeline (f32)
+                            on a warp-specialized streaming    (stream_pipeline.cuh)
+                            pipeline (f32)
 
 All seven compute the same thing: the 3x3 clamp-to-edge CAS + quantize of
 a woven pre-CAS image, int16 Q2.14 or float32, to uint8.  K1, K2 and K4
@@ -45,7 +46,8 @@ Each wrapper runs its kernel on a CUDA tensor (on the current stream; a
 launch error raises) and its plain version on a CPU tensor, and counts its
 kernel launches in ``.launches`` (K6's, from its three wrappers, in
 ``cas_quantize_blocked.launches``).  K1, K2 and K3 also record in
-``.staging`` the staging form (``staging_form``) of their last launch.
+``.staging`` the staging form (``staging_form``) of their last launch, and
+K7 (and K10b, ops/quantize_cuda.py) the copy form (``stream_form``) of its.
 """
 from __future__ import annotations
 
@@ -102,6 +104,15 @@ def staging_form(row_bytes: int, ptrs) -> str:
     input address in ptrs is on a 16-byte boundary, else "per element"."""
     aligned = row_bytes % 16 == 0 and all(p % 16 == 0 for p in ptrs)
     return "16-byte" if aligned else "per element"
+
+
+def stream_form(W: int, v_ptr: int, out_ptr: int) -> str:
+    """How csrc/stream_pipeline.cuh (K7, K10b) copies rows into its rings:
+    "bulk" (one cp.async.bulk per row, 32-bit stores out) where W % 4 == 0,
+    v starts on a 16-byte boundary and out on a 4-byte one, else "per
+    element" (a 4-byte cp.async per element, byte stores out)."""
+    aligned = W % 4 == 0 and v_ptr % 16 == 0 and out_ptr % 4 == 0
+    return "bulk" if aligned else "per element"
 
 
 def _blend_u8(c, nsum, minlen, maxlen, sharpen: float, divide: bool = False) -> torch.Tensor:
@@ -548,9 +559,12 @@ def cas_quantize_mono_reference(v: torch.Tensor, sharpen: float) -> torch.Tensor
 
 def cas_quantize_mono(v: torch.Tensor, sharpen: float, block_rows: int = 128) -> torch.Tensor:
     """Woven CAS + quantize in one persistent launch: (..., H, W) float32 ->
-    uint8 of the same shape, in bands of block_rows rows (at most 192 per
-    band on the card).  CUDA tensors go through csrc/cas_mono.cu, CPU
-    tensors take the plain version.  The output equals cas_quantize's."""
+    uint8 of the same shape.  On the card the image is cut into segments
+    of block_rows rows (any integer >= 1) on strips of 128 columns, and
+    each consumer warp streams a balanced run of them down its strips
+    (csrc/stream_pipeline.cuh): block_rows sets how finely the runs
+    balance, never the output.  CUDA tensors go through csrc/cas_mono.cu,
+    CPU tensors take the plain version.  The output equals cas_quantize's."""
     _check_f32("mono CAS", v)
     bh = _block_rows(block_rows)
     if v.device.type == "cpu":
@@ -562,7 +576,9 @@ def cas_quantize_mono(v: torch.Tensor, sharpen: float, block_rows: int = 128) ->
     _launch("vkr_cas_mono", v.device, v.data_ptr(), out.data_ptr(),
             v.numel() // (H * W), H, W, bh, float(sharpen))
     cas_quantize_mono.launches += 1
+    cas_quantize_mono.staging = stream_form(W, v.data_ptr(), out.data_ptr())
     return out
 
 
 cas_quantize_mono.launches = 0
+cas_quantize_mono.staging = None
