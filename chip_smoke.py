@@ -236,6 +236,18 @@ tier and the big tier beyond it) on the card at full frame sizes, and fails
               flagship frames -p 2: each device's 4 frames identical to the
               one-device call on them, all 8 within 1 LSB of the one-device
               batch of 8 (cuBLAS tiles by batch size), K1 once per device
+ 11. tuning, graft
+              the card's row of core/tuning.py (its dense cap, or the
+              default's) beside its name and power limit; of the u=2
+              128-aligned plans scripts/torch_dense_cap_sweep.py sweeps,
+              the two either side of the cap, each built for the card
+              (the bank set of its tier asserted: rows at or under the
+              cap, staged past it) and held within 1 LSB of its other tier
+              on the same seeded frame, K1 launched on both; then
+              graft_entry.entry()'s 256x512 -p 2 step within 1 LSB of the
+              fp64 oracle, and graft_entry.dryrun_multichip(2) on the card
+              (two dp entries on cuda:0, the sp cases at S = 2 over gloo),
+              every step within 1 LSB of the one-device call
 
 The line before the card's line lists each kernel with its launches over
 the routes and runs, its worst difference, its time, its plain version's
@@ -1174,6 +1186,7 @@ PARENT_SHARD_CAS = {
     ("cols", 2048, 4096, 1, "torch.float32"): "0.2325 ms",
 }
 SP_ITERS = 5
+PROFILE_ATTEMPTS = 3  # traces of one shard CAS call before an empty one fails
 SP_TIMEOUT_S = 300
 DP_FRAMES = 8
 
@@ -1213,14 +1226,20 @@ def sp_phase(dev, card, kernels, oracles, image, launches_of, zero_counters):
     # parent's form on this run's kernels (K6 on 64-row blocks with gathered
     # halo rows; concat + K3 + crop), the parent's own readings, K3 alone
     # on the block and the bound; torch.profiler lists the device kernels
-    # of one call: one CAS kernel, no copy of the shard
+    # of one call: one CAS kernel, no copy of the shard.  A trace that holds
+    # no device record at all (the call launches a kernel, so CUPTI lost
+    # its records) is taken again, up to PROFILE_ATTEMPTS traces in all
     def one_cas_kernel(what, fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
+        for attempt in range(PROFILE_ATTEMPTS):
             torch.cuda.synchronize()
-        found = {e.key: e.count for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA}
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            found = {e.key: e.count for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA}
+            if found:
+                break
+            print(f"[10 sp] {what}: trace {attempt + 1} holds no device record; tracing again")
         require(list(found.values()) == [1] and "cas_rows_kernel" in next(iter(found)),
                 f"{what}: device kernels and copies {found}, expected one cas_rows_kernel")
         return next(iter(found))
@@ -1392,8 +1411,90 @@ def sp_phase(dev, card, kernels, oracles, image, launches_of, zero_counters):
     print(f"[10 sp] phase 10 in {time.perf_counter() - t_phase:.3f} s")
 
 
+# phase 11, the card's tuning row and graft_entry's entry points: the u=2
+# 128-aligned plans of scripts/torch_dense_cap_sweep.py, (h, w) of the
+# input; the two either side of the card's dense cap are driven on both tiers
+TUNING_PLANS = [(1080, 1920), (1024, 2048), (1536, 3072), (2160, 3840), (2048, 4096),
+                (2304, 4608)]
+
+
+def tuning_phase(dev, card, launches_of, zero_counters):
+    """Phase 11: the card's row of core/tuning.py; the swept u=2 plans
+    either side of its dense cap, each built as a user's call builds it
+    (the bank set its tier takes asserted) and held within 1 LSB of the
+    other tier on the same frame, K1 launched on both; graft_entry.entry()'s
+    step on a seeded frame against the fp64 oracle; graft_entry.
+    dryrun_multichip(2) on the card (two dp entries on cuda:0, S = 2 over
+    gloo), every step within 1 LSB of the one-device call."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vkresample_tpu_torch import Precision, UpscalePlan, build_upscale, graft_entry
+    from vkresample_tpu_torch.core import tuning
+    from vkresample_tpu_torch.fft import mxu_pipeline
+    from vkresample_tpu_torch.oracle.numpy_ref import upscale_oracle
+
+    t_phase = time.perf_counter()
+    row = tuning.current(dev)
+    source = "the card's row" if tuning._row(dev) else "the default: no row for the card"
+    print(f"[11 tuning] {card}: {row} ({source})")
+    plans = [UpscalePlan(h=h, w=w, upscale=2.0, precision=Precision.HALF) for h, w in TUNING_PLANS]
+    axis = [max(p.H, p.W) for p in plans]
+    below = max((p for p, a in zip(plans, axis) if a <= row.dense_max), key=lambda p: p.W)
+    above = [p for p, a in zip(plans, axis) if a > row.dense_max][:1]
+    for plan in [below] + above:
+        n = max(plan.H, plan.W)
+        card_tag = mxu_pipeline.bank_set(tuning.plan_for(plan, dev))
+        want_tag = "staged" if n > row.dense_max else "rows"
+        require(card_tag == want_tag, f"tuning: {plan.w}x{plan.h} takes {card_tag} on the "
+                f"card, expected {want_tag}")
+        other = dataclasses.replace(plan, dense_max=n - 1 if want_tag == "rows" else n)
+        x = torch.from_numpy(seeded_image(plan.h, plan.w)).to(dev)
+        outs = {}
+        for label, p in (("card's", plan), ("other", other)):
+            zero_counters()
+            t0 = time.perf_counter()
+            outs[label] = build_upscale(p, dev, planes_out=True)(x)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = launches_of(f"tuning {plan.w}x{plan.h} {label}", {"K1"})
+            print(f"[11 tuning] {plan.w}x{plan.h} -> {plan.W}x{plan.H} -p 2 on the "
+                  f"{label} tier ({mxu_pipeline.bank_set(tuning.plan_for(p, dev))}): first "
+                  f"frame in {secs:.3f} s; launches {counts}")
+        d, same = dev_diff(outs["card's"], outs["other"])
+        print(f"[11 tuning] {plan.w}x{plan.h} (axis {n}, cap {row.dense_max}): the card's tier "
+              f"{card_tag} vs the other: max|diff| {d} LSB, identical {same:.6f} on {card}")
+        require(d <= TOL_LSB, f"tuning: the two tiers of {plan.w}x{plan.h} differ by {d} LSB")
+        del outs, x
+        torch.cuda.empty_cache()
+
+    fn, (img, banks) = graft_entry.entry()
+    plan = fn.keywords["plan"]
+    frame = seeded_image(plan.h, plan.w)
+    zero_counters()
+    out = fn(torch.from_numpy(frame).to(dev), banks)
+    torch.cuda.synchronize()
+    counts = launches_of("graft entry()", {"K1"} if "stx_b1" in banks else {"K2"})
+    require(tuple(out.shape) == (plan.H, plan.W, C) and out.dtype == torch.uint8,
+            f"entry(): bad output {tuple(out.shape)} {out.dtype}")
+    d = int(np.abs(out.cpu().numpy().astype(np.int16) - upscale_oracle(frame, plan)).max())
+    print(f"[11 graft] entry(): {plan.w}x{plan.h} -> {plan.W}x{plan.H} -p 2 on "
+          f"{img.device}, max|diff| vs fp64 oracle {d} LSB; launches {counts}")
+    require(d <= TOL_LSB, f"entry() is {d} LSB from the oracle")
+    t0 = time.perf_counter()
+    diffs = graft_entry.dryrun_multichip(2)
+    torch.cuda.synchronize()
+    zero_counters()
+    print(f"[11 graft] dryrun_multichip(2) on {card} in {time.perf_counter() - t0:.3f} s, max|diff| "
+          f"vs the one-device call per step (LSB): {diffs}")
+    require(all(v <= TOL_LSB for v in diffs.values()), f"dryrun_multichip(2): {diffs}")
+    print(f"[11 tuning] phase 11 in {time.perf_counter() - t_phase:.3f} s")
+
+
 def main() -> int:
-    """Phases 1-10, with the big frames' oracles and the engine cases'
+    """Phases 1-11, with the big frames' oracles and the engine cases'
     float64 references in worker processes that are stopped before it
     returns or raises."""
     import multiprocessing
@@ -2164,6 +2265,9 @@ def run(pool) -> int:
 
     # 10. the sp pencil mode and dp batches
     sp_phase(dev, card, kernels, oracles, image, launches_of, zero_counters)
+
+    # 11. the card's tuning row, graft_entry's entry() and dryrun_multichip(2)
+    tuning_phase(dev, card, launches_of, zero_counters)
 
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda"} | {key: k[key] for key in (

@@ -23,7 +23,10 @@ list of devices ("dp", parallel/mesh.py), and one frame splits over the
 ranks of a torch.distributed group in the "sp" pencil mode
 (parallel/distributed.py; parallel/launch.py starts the ranks).  The entry
 points run on the current CUDA device unless the caller passes
-device="cpu".
+device="cpu".  Where the dense and the staged tiers cross is the card's
+(core/tuning.py, a table keyed on the card's name); graft_entry.py holds
+entry() and dryrun_multichip(), the counterparts of the root
+__graft_entry__.py.
 
 Public API:
     upscale(img, upscale, precision=..., sharpen=..., r2c=..., engine=..., device=...) -> (H, W, C) uint8

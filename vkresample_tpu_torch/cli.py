@@ -201,6 +201,7 @@ def run_single(cfg, extras, device) -> int:
     import torch
 
     from .core.config import default_output_name
+    from .core.tuning import plan_for
     from .io import png
     from .pipeline.timing import time_amortized
     from .pipeline.upscale import build_upscale, planes_format
@@ -219,6 +220,7 @@ def run_single(cfg, extras, device) -> int:
     print(f"HBM per device: {_hbm_estimate_mb(plan)} MB")
     device = torch.device(device)
     print("Device: " + _device_name(device))
+    plan = plan_for(plan, device)  # the card's dense cap picks the tier
     # u=2 r2c plans and c2c grid plans emit the fused CAS kernels' parity
     # planes ('quad', 'rows' or 'grid'), which the PNG encoder weaves in its
     # row loop; the rest emit the planar (C, H, W) image
@@ -276,6 +278,7 @@ def run_batched(cfg, extras, device) -> int:
     import numpy as np
     import torch
 
+    from .core.tuning import plan_for
     from .io.folder import frame_paths
     from .io.png import PngPool, read_png
     from .parallel.mesh import batch_for_devices, data_parallel_devices
@@ -313,8 +316,11 @@ def run_batched(cfg, extras, device) -> int:
         raise ValueError(f"-batch takes a positive frame count, got {extras['batch']}")
     batch = batch_for_devices(extras["batch"], n_files, n_dev)
     # planar device output and planar encode: no layout transpose on either
-    # side of the PNG boundary; parity-plane routes are woven by the encoder
-    fmt = planes_format(plan)
+    # side of the PNG boundary; parity-plane routes are woven by the encoder.
+    # Each card's cap picks its tier: cards whose layouts differ give woven
+    # frames
+    fmts = {planes_format(plan_for(plan, d)) for d in devices}
+    fmt = fmts.pop() if len(fmts) == 1 else None
     fn = build_batched_upscale(plan, devices if n_dev > 1 else devices[0], planar_out=True,
                                planes_out=fmt is not None)
 

@@ -19,7 +19,9 @@ from .smooth import is_7smooth
 # largest axis length the dense engine builds a DFT matrix for
 # (vkresample_tpu/fft/mxu_pipeline.py DENSE_MAX).  Every route decision reads
 # it here, at call time, through UpscalePlan.above_dense_cap, so a test may
-# lower it on this one module to run the big tiers at small shapes.
+# lower it on this one module to run the big tiers at small shapes.  A card
+# with a row in core/tuning.py sets its own cap on the plans a staged bank
+# set takes (UpscalePlan.dense_max).
 DENSE_MAX = 8192
 
 
@@ -55,6 +57,10 @@ class UpscalePlan:
     r2c: bool = True
     channels: int = 3
     engine: Engine = Engine.AUTO
+    # the dense cap of the card the plan is built for (core/tuning.py; the
+    # entry points fill it from the card's row), None: DENSE_MAX.  It moves
+    # only the plans a staged bank set takes (fft/mxu_pipeline.py::above_cap)
+    dense_max: Optional[int] = None
 
     # --- derived (filled by __post_init__) ---
     H: int = dataclasses.field(init=False)

@@ -26,6 +26,12 @@ and the phases route is a TPU substitute for one.  That is the port's one
 routing departure.  Not ported either: the int8 dense big quad
 (VKRESAMPLE_BIG=int8) and the A/B knobs of the JAX module.
 
+The cap between the two tiers is DENSE_MAX, or, on a card with a row in
+core/tuning.py, the card's dense_max (plan.dense_max, which the entry
+points fill).  The card's cap moves only the plans a staged bank set takes
+(staged_tier_takes): every other plan keeps its route up to DENSE_MAX, the
+largest DFT matrix the dense tier builds (above_cap).
+
 Every staged bank set goes through the disk bank cache
 (core/bankcache.py), as in the JAX package.
 """
@@ -44,6 +50,34 @@ from ..ops.weave import weave_grid
 from . import dense, staged
 
 
+@functools.lru_cache(maxsize=256)
+def staged_tier_takes(plan: UpscalePlan) -> bool:
+    """True when a staged bank set of -p 0 or -p 2 takes the plan above
+    the cap: the staged quad (r2c u=2, staged_supported), the r2c grid
+    (integer u >= 3 or a fraction p/q, grid_supported) or the c2c grid
+    (c2c_grid_params).  -p 1 takes its float64 staged sets at every size."""
+    if plan.precision is Precision.DOUBLE:
+        return False
+    if not plan.r2c:
+        return staged.c2c_grid_params(plan) is not None
+    u = plan.integer_upscale
+    if u == 2:
+        return staged.staged_supported(plan)
+    if (u is not None and u >= 3) or (u is None and staged.frac_params(plan) is not None):
+        return staged.grid_supported(plan)
+    return False
+
+
+def above_cap(plan: UpscalePlan) -> bool:
+    """True when the plan is in the big tiers: past plan.dense_max (the
+    card's cap) for a plan that staged_tier_takes, past DENSE_MAX
+    (plan.above_dense_cap) for every other plan and where the plan has no
+    cap of its own."""
+    if plan.dense_max is None or not staged_tier_takes(plan):
+        return plan.above_dense_cap
+    return max(plan.h, plan.w, plan.H, plan.W) > plan.dense_max
+
+
 def c2c_grid_selected(plan: UpscalePlan) -> bool:
     """c2c plans take the staged grid form (p^2 magnitude planes and a
     per-parity fused CAS) at every size where c2c_grid_params allows it,
@@ -54,7 +88,7 @@ def c2c_grid_selected(plan: UpscalePlan) -> bool:
     params = staged.c2c_grid_params(plan)
     if params is None:
         return False
-    return plan.above_dense_cap or params[0] <= 4
+    return above_cap(plan) or params[0] <= 4
 
 
 def big_grid_selected(plan: UpscalePlan) -> bool:
@@ -64,7 +98,7 @@ def big_grid_selected(plan: UpscalePlan) -> bool:
     the cap the dense tiers serve)."""
     if not plan.r2c:
         return c2c_grid_selected(plan)
-    if plan.precision is Precision.DOUBLE or not plan.above_dense_cap:
+    if plan.precision is Precision.DOUBLE or not above_cap(plan):
         return False
     u = plan.integer_upscale
     return ((u is not None and u >= 3) or (u is None and staged.frac_params(plan) is not None)) \
@@ -85,7 +119,7 @@ def bank_set(plan: UpscalePlan) -> Optional[str]:
         return "c2cgrid"
     if big_grid_selected(plan):
         return "grid"
-    if plan.above_dense_cap:
+    if above_cap(plan):
         if plan.precision is not Precision.DOUBLE and staged.staged_supported(plan):
             return "staged"
         return None

@@ -10,10 +10,10 @@ at its own size with no zero padding.
 A sequence of devices in place of one device is the JAX package's "dp"
 mesh (parallel/mesh.py): the frames split evenly over the devices
 (split_frames; ValueError unless their count divides the batch), each
-device runs its own cached pipeline with its own banks on its share, all
-launched from one host thread (the launches on different cards overlap),
-with no collectives, and the result is one output per device in frame
-order.  Repeats are allowed: ["cpu", "cpu"] or [cuda:0, cuda:0] split a
+device runs its own cached pipeline with its own banks and its own card's
+dense cap (core/tuning.py) on its share, all launched from one host thread
+(the launches on different cards overlap), with no collectives, and the
+result is one output per device in frame order.  Repeats are allowed: ["cpu", "cpu"] or [cuda:0, cuda:0] split a
 batch in two on one device.
 """
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 
 from ..core.config import resolve_device
 from ..core.plan import UpscalePlan
+from ..core.tuning import plan_for
 from ..parallel.mesh import data_parallel_devices, split_frames
 from .upscale import _build
 
@@ -41,11 +42,14 @@ def build_batched_upscale(plan: UpscalePlan, device=None, planar_out: bool = Fal
 
     device may also be a list or tuple of devices (the "dp" mode, see the
     module docstring): the function then returns a list with each device's
-    output for its N/k frames, in frame order."""
+    output for its N/k frames, in frame order.  Each device's share takes
+    its card's dense cap (core/tuning.py), so with planes_out two cards
+    with different rows may give different plane layouts."""
     if not isinstance(device, (list, tuple)):
-        return _build(plan, resolve_device(device), bool(planes_out), bool(planar_out))
+        device = resolve_device(device)
+        return _build(plan_for(plan, device), device, bool(planes_out), bool(planar_out))
     devices = data_parallel_devices(device)
-    fns = [_build(plan, d, bool(planes_out), bool(planar_out)) for d in devices]
+    fns = [_build(plan_for(plan, d), d, bool(planes_out), bool(planar_out)) for d in devices]
 
     def run(imgs):
         imgs = torch.as_tensor(imgs)

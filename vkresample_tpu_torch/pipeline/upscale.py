@@ -52,6 +52,10 @@ once on the batch and each CAS kernel once on N*C planes
 elements (C*H*W) run one channel at a time, as the JAX package's
 channel-serial loop does, with the same output.
 
+The route also depends on the card: a card with a row in core/tuning.py
+sets the cap between the dense and the staged tiers for the plans a staged
+bank set takes (UpscalePlan.dense_max, filled by the entry points).
+
 Every entry point runs on the current CUDA device unless the caller names
 another (``device="cpu"`` runs the kernels' plain versions); without a
 CUDA device and without that request it raises RuntimeError.
@@ -76,6 +80,7 @@ import torch
 
 from ..core.config import Engine, Precision, fp32_matmul, resolve_device
 from ..core.plan import UpscalePlan
+from ..core.tuning import plan_for
 from ..fft import dense, mxu_pipeline, staged
 from ..ops import cas as cas_ops
 from ..ops.cas_cuda import (
@@ -126,10 +131,11 @@ def _precas(x: torch.Tensor, plan: UpscalePlan, engine: Engine, banks) -> torch.
 def _parity_route(plan: UpscalePlan) -> Optional[str]:
     """Which parity formulation the u=2 fast path uses: 'quad' (rows AND
     columns split: four planes) for 128-aligned widths or axes beyond the
-    dense cap, 'rows' (two planes) otherwise, None when u != 2."""
+    dense cap (mxu_pipeline.above_cap), 'rows' (two planes) otherwise, None
+    when u != 2."""
     if plan.integer_upscale != 2:
         return None
-    if plan.w % 128 == 0 or plan.above_dense_cap:
+    if plan.w % 128 == 0 or mxu_pipeline.above_cap(plan):
         return "quad"
     return "rows"
 
@@ -314,8 +320,11 @@ def build_upscale(plan: UpscalePlan, device=None, planes_out: bool = False,
     MAX_PLANES frames x channels a call.
 
     device: a torch device (default: the current CUDA device; RuntimeError
-    when there is none; "cpu" runs the kernels' plain versions)."""
-    return _build(plan, resolve_device(device), bool(planes_out), bool(planar_out))
+    when there is none; "cpu" runs the kernels' plain versions).  The plan
+    takes the device's dense cap (core/tuning.py::plan_for) unless it has
+    one."""
+    device = resolve_device(device)
+    return _build(plan_for(plan, device), device, bool(planes_out), bool(planar_out))
 
 
 def upscale(
