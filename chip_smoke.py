@@ -1226,20 +1226,27 @@ def sp_phase(dev, card, kernels, oracles, image, launches_of, zero_counters):
     # parent's form on this run's kernels (K6 on 64-row blocks with gathered
     # halo rows; concat + K3 + crop), the parent's own readings, K3 alone
     # on the block and the bound; torch.profiler lists the device kernels
-    # of one call: one CAS kernel, no copy of the shard.  A trace that holds
-    # no device record at all (the call launches a kernel, so CUPTI lost
-    # its records) is taken again, up to PROFILE_ATTEMPTS traces in all
-    def one_cas_kernel(what, fn):
+    # of one call: one CAS kernel, no copy of the shard.  Each traced call
+    # must count one launch on its wrapper's own counter (`counter`, read
+    # before and after); a trace that holds no device record at all while
+    # the wrapper counted its launch (CUPTI lost the records) is printed
+    # with that count and taken again, up to PROFILE_ATTEMPTS traces in all
+    def one_cas_kernel(what, fn, counter):
         for attempt in range(PROFILE_ATTEMPTS):
             torch.cuda.synchronize()
+            before = counter.launches
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
+            launched = counter.launches - before
+            require(launched == 1, f"{what}: the wrapper counted {launched} launches in the "
+                    "traced call, expected 1")
             found = {e.key: e.count for e in prof.key_averages()
                      if e.device_type == torch.autograd.DeviceType.CUDA}
             if found:
                 break
-            print(f"[10 sp] {what}: trace {attempt + 1} holds no device record; tracing again")
+            print(f"[10 sp] {what}: trace {attempt + 1} holds no device record, the wrapper "
+                  f"counted {launched} launch; tracing again")
         require(list(found.values()) == [1] and "cas_rows_kernel" in next(iter(found)),
                 f"{what}: device kernels and copies {found}, expected one cas_rows_kernel")
         return next(iter(found))
@@ -1262,7 +1269,8 @@ def sp_phase(dev, card, kernels, oracles, image, launches_of, zero_counters):
         got = shard_cas()
         d, _ = dev_diff([got], [cas_cuda.cas_quantize_blocked_reference(v, top, bot, r, 0.2)])
         d_parent, _ = dev_diff([got], [parent_form()])
-        kernel = one_cas_kernel(f"K6's shard wrapper at S = {S}", shard_cas)
+        kernel = one_cas_kernel(f"K6's shard wrapper at S = {S}", shard_cas,
+                                cas_cuda.cas_quantize_blocked)
         bound_ms, bound_by = halo_bound((v, top, bot))
         alone = graph_ms(shard_cas, 50)
         print(f"[10 sp] K6 cas_quantize_blocked_halo {tuple(v.shape)} (the rows form's S = {S} "
@@ -1288,7 +1296,8 @@ def sp_phase(dev, card, kernels, oracles, image, launches_of, zero_counters):
                 parent_form = lambda: cas_cuda.cas_quantize(  # noqa: E731
                     torch.cat([left, v, right], -1), 0.2)[..., 1:-1].contiguous()
                 d, _ = dev_diff([shard_cas()], [parent_form()])
-                kernel = one_cas_kernel(f"the column forms' shard CAS S = {S} {dt}", shard_cas)
+                kernel = one_cas_kernel(f"the column forms' shard CAS S = {S} {dt}", shard_cas,
+                                        cas_cuda.cas_quantize_cols_halo)
                 bound_ms, bound_by = halo_bound((v, left, right))
                 alone = graph_ms(shard_cas, 50)
                 parent = PARENT_SHARD_CAS.get(("cols", H, W, S, str(dt)), "not read")
@@ -1414,8 +1423,8 @@ def sp_phase(dev, card, kernels, oracles, image, launches_of, zero_counters):
 # phase 11, the card's tuning row and graft_entry's entry points: the u=2
 # 128-aligned plans of scripts/torch_dense_cap_sweep.py, (h, w) of the
 # input; the two either side of the card's dense cap are driven on both tiers
-TUNING_PLANS = [(1080, 1920), (1024, 2048), (1536, 3072), (2160, 3840), (2048, 4096),
-                (2304, 4608)]
+TUNING_PLANS = [(1080, 1920), (1024, 2048), (1152, 2304), (1536, 3072), (2160, 3840),
+                (2048, 4096), (2304, 4608)]
 
 
 def tuning_phase(dev, card, launches_of, zero_counters):

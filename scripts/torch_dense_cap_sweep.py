@@ -14,9 +14,13 @@ tier.  Beside them, printed only, the reference tier (-engine xla):
   family          plans (input -> output)              dense         staged
   u2 w%128=0      1920x1080 -> 3840x2160 ...           quad + K1     staged quad + K1
                   4608x2304 -> 9216x4608
-  u2 w%128!=0     1440x1080, 2880x1620 (u = 2)         rows + K2     staged quad + K1
-  u3              1280x720, 2560x1440 (u = 3)          rows u + K5   r2c grid + K4
-  1.5x            2560x1440, 5120x2880 (u = 1.5)       chain + K3    r2c grid 3/2 + K4
+  u2 w%128!=0     1440x1080, 2400x1350, 2880x1620      rows + K2     staged quad + K1
+  u3              1280x720, 1536x864, 2560x1440        rows u + K5   r2c grid + K4
+  1.5x            2560x1440, 3072x1728, 5120x2880      chain + K3    r2c grid 3/2 + K4
+
+These are the families a card's cap applies to
+(fft/mxu_pipeline.py::card_cap_applies); every plan here is checked to be
+one of them, and the other plans keep the default cap.
 
 each at -p 2 and -p 0.  Before any timing, each plan's two tiers are held
 against each other (<= 1 LSB, the share of identical pixels printed) and
@@ -58,15 +62,19 @@ TOL_LSB = 1
 PLANS = [
     ("u2 w%128=0", (1080, 1920), 2.0),
     ("u2 w%128=0", (1024, 2048), 2.0),
+    ("u2 w%128=0", (1152, 2304), 2.0),
     ("u2 w%128=0", (1536, 3072), 2.0),
     ("u2 w%128=0", (2160, 3840), 2.0),
     ("u2 w%128=0", (2048, 4096), 2.0),
     ("u2 w%128=0", (2304, 4608), 2.0),
     ("u2 w%128!=0", (1080, 1440), 2.0),
+    ("u2 w%128!=0", (1350, 2400), 2.0),
     ("u2 w%128!=0", (1620, 2880), 2.0),
     ("u3", (720, 1280), 3.0),
+    ("u3", (864, 1536), 3.0),
     ("u3", (1440, 2560), 3.0),
     ("1.5x", (1440, 2560), 1.5),
+    ("1.5x", (1728, 3072), 1.5),
     ("1.5x", (2880, 5120), 1.5),
 ]
 # family -> the bank-set tags (fft/mxu_pipeline.py::bank_set) of its two tiers
@@ -183,6 +191,8 @@ def main(argv) -> int:
         oracles = {(h, w, u): pool.submit(oracle_job, h, w, u, True) for _, (h, w), u in PLANS}
         for family, (h, w), u in PLANS:
             base = {m: UpscalePlan(h=h, w=w, upscale=u, precision=Precision[m]) for m in MODES}
+            if not all(mxu_pipeline.card_cap_applies(p) for p in base.values()):
+                raise RuntimeError(f"{family} {w}x{h}: not a family a card's cap applies to")
             x = xs[h, w, u] = torch.from_numpy(seeded_image(h, w)).to(dev)
             outs = {}
             t0 = time.perf_counter()

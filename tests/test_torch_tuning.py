@@ -1,7 +1,7 @@
 """The port's per-card tuning table (vkresample_tpu_torch/core/tuning.py) on
 the CPU: the default row against the JAX package's, name matching, the
 DENSE_MAX seam, a card's row on the route functions (a lower cap moves
-only the plans a staged bank set takes), the pipeline cache keyed on the
+only the plan families the dense-cap sweep times), the pipeline cache keyed on the
 cap, the dense-cap sweep's decision rule on synthetic readings, and the
 new modules importing neither jax nor the JAX package."""
 import importlib.util
@@ -81,13 +81,13 @@ def test_dense_max_seam_lowers_the_default(monkeypatch):
 
 
 # (h, w, u, r2c, the tag with a row at LOW, planes_format there); the same
-# plans take rows / chain / c2c below the default cap
+# plans take rows / chain below the default cap.  The families the sweep
+# times (mxu_pipeline.card_cap_applies)
 STAGED = [
     (32, 128, 2.0, True, "staged", "quad"),   # staged quad, 128-aligned
     (32, 96, 2.0, True, "staged", "quad"),    # staged quad, rows below the cap
     (32, 40, 3.0, True, "grid", "grid"),      # r2c grid u=3
     (32, 48, 1.5, True, "grid", "grid"),      # r2c grid 3/2
-    (32, 40, 5.0, False, "c2cgrid", "grid"),  # c2c grid, p = 5 > 4
 ]
 
 
@@ -96,13 +96,18 @@ def test_a_low_row_moves_staged_plans(low_row, h, w, u, r2c, tag, fmt):
     plan = UpscalePlan(h=h, w=w, upscale=u, r2c=r2c, precision=Precision.HALF)
     tuned = tuning.plan_for(plan, "cpu")
     assert tuned.dense_max == LOW and not tuned.above_dense_cap
-    assert mxu_pipeline.staged_tier_takes(tuned) and mxu_pipeline.above_cap(tuned)
+    assert mxu_pipeline.card_cap_applies(tuned) and mxu_pipeline.above_cap(tuned)
     assert mxu_pipeline.bank_set(tuned) == tag and tpipe.planes_format(tuned) == fmt
     assert mxu_pipeline.bank_set(plan) != tag  # the plan without the row: the dense tier
 
 
-# plans no staged bank set takes keep their routes under the low row
+# plans outside the swept families keep their routes under the low row:
+# those no staged bank set takes, and those a staged set takes that the
+# sweep did not time (c2c p > 4, r2c u = 4, the fraction 5/2)
 KEPT = [
+    dict(h=32, w=40, upscale=5.0, r2c=False, precision=Precision.HALF),  # c2c grid p = 5
+    dict(h=32, w=40, upscale=4.0, precision=Precision.HALF),             # r2c grid u = 4
+    dict(h=32, w=48, upscale=2.5, precision=Precision.HALF),             # r2c grid 5/2
     dict(h=22, w=64, upscale=2.0),               # 22 rows: no Cooley-Tukey split
     dict(h=64, w=64, upscale=1.3333334),         # a fraction with no grid form
     dict(h=37, w=50, upscale=1.0),               # u = 1
@@ -116,7 +121,7 @@ KEPT = [
 def test_a_low_row_keeps_other_plans_and_raises_nothing(low_row, kw):
     plan = UpscalePlan(**kw)
     tuned = tuning.plan_for(plan, "cpu")
-    assert tuned.dense_max == LOW and not mxu_pipeline.staged_tier_takes(tuned)
+    assert tuned.dense_max == LOW and not mxu_pipeline.card_cap_applies(tuned)
     assert not mxu_pipeline.above_cap(tuned)
     assert mxu_pipeline.bank_set(tuned) == mxu_pipeline.bank_set(plan)
     assert tpipe.route_engine(tuned) is tpipe.route_engine(plan)
@@ -283,6 +288,7 @@ def test_sweep_variants_pick_the_tiers():
         plan = UpscalePlan(h=h, w=w, upscale=u, precision=Precision.HALF)
         tags = tuple(mxu_pipeline.bank_set(s.variant_plan(plan, v)) for v in ("dense", "staged"))
         assert tags == s.TAGS[family], (family, h, w, u)
+        assert mxu_pipeline.card_cap_applies(plan), (family, h, w, u)
         assert s.variant_plan(plan, "xla").engine is Engine.XLA
 
 
@@ -303,8 +309,8 @@ def test_new_modules_import_no_jax():
 
 def test_the_h100_row():
     """The table's one row, from the sweep: the H100 SXM part's name takes
-    dense_max 4096; the parts not measured keep the default."""
+    dense_max 4608; the parts not measured keep the default."""
     tuning.row_for_name.cache_clear()
-    assert tuning.row_for_name("NVIDIA H100 80GB HBM3") == tuning.DeviceTuning(dense_max=4096)
+    assert tuning.row_for_name("NVIDIA H100 80GB HBM3") == tuning.DeviceTuning(dense_max=4608)
     for name in ("NVIDIA H100 PCIe", "NVIDIA H100 NVL", "NVIDIA A100-SXM4-80GB"):
         assert tuning.row_for_name(name) is None

@@ -20,8 +20,8 @@ from .smooth import is_7smooth
 # (vkresample_tpu/fft/mxu_pipeline.py DENSE_MAX).  Every route decision reads
 # it here, at call time, through UpscalePlan.above_dense_cap, so a test may
 # lower it on this one module to run the big tiers at small shapes.  A card
-# with a row in core/tuning.py sets its own cap on the plans a staged bank
-# set takes (UpscalePlan.dense_max).
+# with a row in core/tuning.py sets its own cap on the plan families its
+# sweep times (UpscalePlan.dense_max).
 DENSE_MAX = 8192
 
 
@@ -59,7 +59,8 @@ class UpscalePlan:
     engine: Engine = Engine.AUTO
     # the dense cap of the card the plan is built for (core/tuning.py; the
     # entry points fill it from the card's row), None: DENSE_MAX.  It moves
-    # only the plans a staged bank set takes (fft/mxu_pipeline.py::above_cap)
+    # only the plan families the card's sweep times
+    # (fft/mxu_pipeline.py::card_cap_applies, above_cap)
     dense_max: Optional[int] = None
 
     # --- derived (filled by __post_init__) ---

@@ -27,10 +27,11 @@ upscale, build_batched_upscale and each share of a "dp" list, the CLI)
 resolve the device and give the plan that card's cap (plan_for, which
 fills UpscalePlan.dense_max), and the route functions of
 fft/mxu_pipeline.py and pipeline/upscale.py read it from the plan.  The
-card's cap moves only the plans a staged bank set takes
-(mxu_pipeline.staged_tier_takes); every other plan keeps its route up to
-DENSE_MAX, the largest DFT matrix the dense tier builds, so a lower cap
-takes away no plan that runs.  The sp functions (parallel/distributed.py)
+card's cap moves only the plan families the sweep below times on both
+tiers (mxu_pipeline.card_cap_applies: r2c u=2 on the staged quad, r2c u=3
+and 3/2 on the r2c grid, at -p 0 and -p 2); every other plan keeps its
+route up to DENSE_MAX, the largest DFT matrix the dense tier builds, so a
+lower cap takes away no plan that runs and moves none it did not time.  The sp functions (parallel/distributed.py)
 run the pencil form their caller names, so no cap applies to them.
 
 The H100 row comes from scripts/torch_dense_cap_sweep.py, which times the
@@ -51,18 +52,20 @@ from .plan import UpscalePlan
 
 @dataclasses.dataclass(frozen=True)
 class DeviceTuning:
-    # largest axis a plan that a staged bank set takes runs on the dense tier
+    # largest axis at which a plan of the swept families
+    # (mxu_pipeline.card_cap_applies) runs on the dense tier
     dense_max: int = dataclasses.field(default_factory=lambda: plan_mod.DENSE_MAX)
 
 
 _TABLE = {
-    # torch.cuda.get_device_name substring -> tuning.  H100 SXM (700 W):
-    # past 4096 every swept plan that a staged bank set takes ran faster on
-    # the staged tier, in both modes; at 3840-4096 neither tier was faster
-    # beyond the spread of five passes (scripts/torch_dense_cap_sweep.py,
-    # PERF.md).  The PCIe and NVL parts were not measured: they keep the
-    # default.
-    "H100 80GB HBM3": DeviceTuning(dense_max=4096),
+    # torch.cuda.get_device_name substring -> tuning.  H100 SXM (700 W),
+    # scripts/torch_dense_cap_sweep.py, two runs in one call (PERF.md
+    # section 6): past 4608 every swept plan ran faster on the staged
+    # tier, in both modes; at 4608 u=3 ran faster dense and the u=2 quad and
+    # 1.5x -p 2 tied; at 3840-4096 the staged tier lost or tied (dense
+    # faster at u=3 and 1.5x 3840).  The PCIe and NVL parts were not
+    # measured: they keep the default.
+    "H100 80GB HBM3": DeviceTuning(dense_max=4608),
 }
 
 

@@ -28,9 +28,10 @@ routing departure.  Not ported either: the int8 dense big quad
 
 The cap between the two tiers is DENSE_MAX, or, on a card with a row in
 core/tuning.py, the card's dense_max (plan.dense_max, which the entry
-points fill).  The card's cap moves only the plans a staged bank set takes
-(staged_tier_takes): every other plan keeps its route up to DENSE_MAX, the
-largest DFT matrix the dense tier builds (above_cap).
+points fill).  The card's cap moves only the plan families whose two tiers
+scripts/torch_dense_cap_sweep.py times (card_cap_applies): every other
+plan keeps its route up to DENSE_MAX, the largest DFT matrix the dense
+tier builds (above_cap).
 
 Every staged bank set goes through the disk bank cache
 (core/bankcache.py), as in the JAX package.
@@ -50,30 +51,29 @@ from ..ops.weave import weave_grid
 from . import dense, staged
 
 
-@functools.lru_cache(maxsize=256)
-def staged_tier_takes(plan: UpscalePlan) -> bool:
-    """True when a staged bank set of -p 0 or -p 2 takes the plan above
-    the cap: the staged quad (r2c u=2, staged_supported), the r2c grid
-    (integer u >= 3 or a fraction p/q, grid_supported) or the c2c grid
-    (c2c_grid_params).  -p 1 takes its float64 staged sets at every size."""
-    if plan.precision is Precision.DOUBLE:
+def card_cap_applies(plan: UpscalePlan) -> bool:
+    """True when a card's cap (plan.dense_max) decides the plan's tier: the
+    families scripts/torch_dense_cap_sweep.py times on both tiers at -p 0
+    and -p 2, r2c u=2 that the staged quad takes (staged_supported) and
+    r2c u=3 or 3/2 that the r2c grid takes (grid_supported).  The c2c
+    grid, r2c u >= 4 and other fractions were not swept, and -p 1 takes
+    its float64 staged sets at every size: they keep DENSE_MAX."""
+    if plan.precision is Precision.DOUBLE or not plan.r2c:
         return False
-    if not plan.r2c:
-        return staged.c2c_grid_params(plan) is not None
     u = plan.integer_upscale
     if u == 2:
         return staged.staged_supported(plan)
-    if (u is not None and u >= 3) or (u is None and staged.frac_params(plan) is not None):
+    if u == 3 or (u is None and staged.frac_params(plan) == (3, 2)):
         return staged.grid_supported(plan)
     return False
 
 
 def above_cap(plan: UpscalePlan) -> bool:
     """True when the plan is in the big tiers: past plan.dense_max (the
-    card's cap) for a plan that staged_tier_takes, past DENSE_MAX
+    card's cap) for a plan that card_cap_applies to, past DENSE_MAX
     (plan.above_dense_cap) for every other plan and where the plan has no
     cap of its own."""
-    if plan.dense_max is None or not staged_tier_takes(plan):
+    if plan.dense_max is None or not card_cap_applies(plan):
         return plan.above_dense_cap
     return max(plan.h, plan.w, plan.H, plan.W) > plan.dense_max
 

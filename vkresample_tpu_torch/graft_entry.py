@@ -21,7 +21,6 @@ import functools
 import numpy as np
 import torch
 
-from .core import plan as plan_mod
 from .core.config import Engine, Precision, fp32_matmul, resolve_device
 from .core.plan import UpscalePlan
 from .core.tuning import plan_for
@@ -34,6 +33,7 @@ from .pipeline import upscale as pipe
 from .pipeline.batched import build_batched_upscale
 
 TOL_LSB = 1
+STAGED_CAP = 64  # step 4's dense cap: the 32x128 and 96x120 plans pass it
 SPAWN_TIMEOUT_S = 300.0
 
 
@@ -120,8 +120,8 @@ def dryrun_multichip(n: int, device=None) -> dict:
       2. planes   the same batch, parity-plane output
       3. serial   steps 1 and 2 with every frame on the channel-serial
                   path (CHANNEL_SERIAL_ELEMS lowered for the step)
-      4. staged   the staged quad at 32x128 and 96x120 with DENSE_MAX
-                  lowered to 64, planes out
+      4. staged   the staged quad at 32x128 and 96x120, the plans'
+                  dense cap 64 (JAX lowers DENSE_MAX to 64), planes out
       5. sp       JAX's seven pencil cases (dense, rows, staged, grid u=3,
                   1.5 and 4/3, c2c grid) at S = n ranks started by
                   parallel/launch.py::spawn: NCCL where there are n cards,
@@ -173,27 +173,22 @@ def dryrun_multichip(n: int, device=None) -> dict:
         _check("serial", sw, woven, diffs)
     finally:
         pipe.CHANNEL_SERIAL_ELEMS = saved
-    # 4. dp plans on the staged tier: the cap lowered (the small-shape
-    # analog of a frame past 8192), an aligned and a non-128-aligned width.
-    # The plans carry the lowered cap as their own, so that a card's row
-    # (core/tuning.py) does not override it and the pipeline cache keys on it
-    cap = plan_mod.DENSE_MAX
-    plan_mod.DENSE_MAX = 64
-    try:
-        for h, w in ((32, 128), (96, 120)):
-            st_plan = UpscalePlan(h=h, w=w, upscale=2.0, precision=Precision.HALF, sharpen=0.2,
-                                  engine=Engine.MXU, dense_max=plan_mod.DENSE_MAX)
-            _require(mxu_pipeline.bank_set(st_plan) == "staged",
-                     f"staged {h}x{w}: bank set {mxu_pipeline.bank_set(st_plan)}")
-            stimgs = torch.from_numpy(np.random.default_rng(3).integers(
-                0, 256, size=(2 * n, h, w, 3), dtype=np.uint8))
-            souts = build_batched_upscale(st_plan, devs, planes_out=True)(stimgs)
-            _require(all(isinstance(part, tuple) and len(part) == 4 for part in souts),
-                     f"staged {h}x{w}: not four quad planes a device")
-            _check(f"staged {h}x{w}", souts,
-                   build_batched_upscale(st_plan, one, planes_out=True)(stimgs), diffs)
-    finally:
-        plan_mod.DENSE_MAX = cap
+    # 4. dp plans on the staged tier: the plans carry a cap of 64 as their
+    # own (the small-shape analog of a frame past 8192), an aligned and a
+    # non-128-aligned width; a card's row (core/tuning.py) does not override
+    # a plan's cap, and the pipeline cache keys on it
+    for h, w in ((32, 128), (96, 120)):
+        st_plan = UpscalePlan(h=h, w=w, upscale=2.0, precision=Precision.HALF, sharpen=0.2,
+                              engine=Engine.MXU, dense_max=STAGED_CAP)
+        _require(mxu_pipeline.bank_set(st_plan) == "staged",
+                 f"staged {h}x{w}: bank set {mxu_pipeline.bank_set(st_plan)}")
+        stimgs = torch.from_numpy(np.random.default_rng(3).integers(
+            0, 256, size=(2 * n, h, w, 3), dtype=np.uint8))
+        souts = build_batched_upscale(st_plan, devs, planes_out=True)(stimgs)
+        _require(all(isinstance(part, tuple) and len(part) == 4 for part in souts),
+                 f"staged {h}x{w}: not four quad planes a device")
+        _check(f"staged {h}x{w}", souts,
+               build_batched_upscale(st_plan, one, planes_out=True)(stimgs), diffs)
     # 5. the sp pencil forms, one frame over S = n ranks
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     backend = "nccl" if device is None and cards >= n else "gloo"

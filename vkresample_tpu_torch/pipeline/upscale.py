@@ -53,8 +53,9 @@ elements (C*H*W) run one channel at a time, as the JAX package's
 channel-serial loop does, with the same output.
 
 The route also depends on the card: a card with a row in core/tuning.py
-sets the cap between the dense and the staged tiers for the plans a staged
-bank set takes (UpscalePlan.dense_max, filled by the entry points).
+sets the cap between the dense and the staged tiers for the plan families
+its sweep times (fft/mxu_pipeline.py::card_cap_applies; UpscalePlan.
+dense_max, filled by the entry points).
 
 Every entry point runs on the current CUDA device unless the caller names
 another (``device="cpu"`` runs the kernels' plain versions); without a
