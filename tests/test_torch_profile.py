@@ -65,6 +65,8 @@ def test_cli_profile_writes_the_trace(tmp_path, capsys):
     names = {e.get("name") for e in _events(path)}
     # the timed region's ops: the GEMMs of the transform and K1's plain version
     assert any(n and "matmul" in n for n in names)
+    # and the port's spans around them (utils/profiling.py::SPANS)
+    assert {"vkr.call", "vkr.layout", "vkr.precas", "vkr.codec", "vkr.cas"} <= names
     assert (tmp_path / "out.png").exists()
 
 

@@ -35,6 +35,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 @lru_cache(maxsize=8)  # f64 staging matrices are tens of MB per geometry
 def _r2c_chain_banks(
@@ -334,31 +336,33 @@ def r2c_quad(x_raw: torch.Tensor, banks: dict, store=None, load=None):
     GEMMs run in the banks' dtype (float32 on the slice); callers keep
     TF32 off (pipeline/upscale.py)."""
     h, w = x_raw.shape[-2:]
-    acc = banks["alpha_odd"].dtype
-    xf = x_raw.to(acc)
-    P01 = torch.matmul(xf, banks["alpha_odd"])
-    signs = torch.ones(w, dtype=acc, device=xf.device)
-    signs[1::2] = -1.0
-    q = (xf * signs).sum(dim=-1, keepdim=True)  # (..., h, 1)
-    P00 = xf * (1.0 / 255.0) - (signs * q) * (1.0 / (255.0 * w))
-    t2e = t2o = None
-    if "Y1n" in banks:
-        # rank-r y-Nyquist correction rows: (..., r, W) split by column parity
-        tcorr = torch.matmul(banks["Y1n"].transpose(0, 1), xf)  # (..., r, w)
-        t2 = torch.matmul(tcorr, banks["beta"])
-        t2e, t2o = t2[..., 0::2], t2[..., 1::2]
+    with span("vkr.precas.x"):
+        acc = banks["alpha_odd"].dtype
+        xf = x_raw.to(acc)
+        P01 = torch.matmul(xf, banks["alpha_odd"])
+        signs = torch.ones(w, dtype=acc, device=xf.device)
+        signs[1::2] = -1.0
+        q = (xf * signs).sum(dim=-1, keepdim=True)  # (..., h, 1)
+        P00 = xf * (1.0 / 255.0) - (signs * q) * (1.0 / (255.0 * w))
+        t2e = t2o = None
+        if "Y1n" in banks:
+            # rank-r y-Nyquist correction rows: (..., r, W) split by column parity
+            tcorr = torch.matmul(banks["Y1n"].transpose(0, 1), xf)  # (..., r, w)
+            t2 = torch.matmul(tcorr, banks["beta"])
+            t2e, t2o = t2[..., 0::2], t2[..., 1::2]
     if store is None:
         P00s, P01s, P00m, P01m = P00, P01, P00, P01
     else:
         P00s, P01s = store(P00), store(P01)
         P00m, P01m = load(P00s), load(P01s)
-    YmT = banks["Ymat_ns"][:h].transpose(0, 1)
-    P10 = torch.matmul(YmT, P00m)
-    P11 = torch.matmul(YmT, P01m)
-    if t2e is not None:
-        YcT = banks["Ymat_ns"][h:].transpose(0, 1)  # (h, r)
-        P10 = P10 + torch.matmul(YcT, t2e)
-        P11 = P11 + torch.matmul(YcT, t2o)
+    with span("vkr.precas.y"):
+        YmT = banks["Ymat_ns"][:h].transpose(0, 1)
+        P10 = torch.matmul(YmT, P00m)
+        P11 = torch.matmul(YmT, P01m)
+        if t2e is not None:
+            YcT = banks["Ymat_ns"][h:].transpose(0, 1)  # (h, r)
+            P10 = P10 + torch.matmul(YcT, t2e)
+            P11 = P11 + torch.matmul(YcT, t2o)
     if store is None:
         return P00s, P01s, P10, P11
     return P00s, P01s, store(P10), store(P11)

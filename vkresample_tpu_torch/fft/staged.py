@@ -45,6 +45,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 # ---------------------------------------------------------------------------
 # kernel columns and banks (f64 numpy)
 # ---------------------------------------------------------------------------
@@ -380,27 +382,29 @@ def r2c_quad_staged(x_raw: torch.Tensor, banks: dict, store=None, load=None):
     P00 and P01 are stored once, the y convs decode them inside their
     row-split view, and every returned plane is stored."""
     h, w = x_raw.shape[-2:]
-    acc = banks["stx_b1"].dtype
-    xf = x_raw.to(acc)
-    P01 = conv_apply_lanes(xf, banks, "stx_")
-    q = _xnyq_colsum(x_raw, xf)
-    P00 = xf * (1.0 / 255.0) - (_signs(w, 1, acc, xf.device) * q) * (1.0 / (255.0 * w))
-    dc_e = dc_o = post = None
-    if "st_y1n" in banks:
-        tcorr = torch.matmul(banks["st_y1n"].transpose(0, 1), xf)  # (..., 1, w)
-        t2o = conv_apply_lanes(tcorr, banks, "stbo_")
-        t2e = conv_apply_lanes(tcorr, banks, "stbe_")
-        n1 = banks["sty_m"].shape[2]
-        dcf, post = ynyq_dc_or_post(banks["st_yc"], n1, n1, 1, h)
-        if dcf is not None:
-            dc_e, dc_o = dcf * t2e, dcf * t2o
+    with span("vkr.precas.x"):
+        acc = banks["stx_b1"].dtype
+        xf = x_raw.to(acc)
+        P01 = conv_apply_lanes(xf, banks, "stx_")
+        q = _xnyq_colsum(x_raw, xf)
+        P00 = xf * (1.0 / 255.0) - (_signs(w, 1, acc, xf.device) * q) * (1.0 / (255.0 * w))
+        dc_e = dc_o = post = None
+        if "st_y1n" in banks:
+            tcorr = torch.matmul(banks["st_y1n"].transpose(0, 1), xf)  # (..., 1, w)
+            t2o = conv_apply_lanes(tcorr, banks, "stbo_")
+            t2e = conv_apply_lanes(tcorr, banks, "stbe_")
+            n1 = banks["sty_m"].shape[2]
+            dcf, post = ynyq_dc_or_post(banks["st_yc"], n1, n1, 1, h)
+            if dcf is not None:
+                dc_e, dc_o = dcf * t2e, dcf * t2o
     if store is not None:
         P00, P01 = store(P00), store(P01)
-    P10 = conv_apply_rows(P00, banks, "sty_", load=load, dc_add=dc_e)
-    P11 = conv_apply_rows(P01, banks, "sty_", load=load, dc_add=dc_o)
-    if post is not None:
-        P10 = P10 + post * t2e
-        P11 = P11 + post * t2o
+    with span("vkr.precas.y"):
+        P10 = conv_apply_rows(P00, banks, "sty_", load=load, dc_add=dc_e)
+        P11 = conv_apply_rows(P01, banks, "sty_", load=load, dc_add=dc_o)
+        if post is not None:
+            P10 = P10 + post * t2e
+            P11 = P11 + post * t2o
     if store is None:
         return P00, P01, P10, P11
     return P00, P01, store(P10), store(P11)

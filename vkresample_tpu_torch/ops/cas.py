@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
+
 
 def cas_sharpen(v: torch.Tensor, sharpen: float) -> torch.Tensor:
     """Sharpen over the last two axes (..., H, W) of a woven image.
@@ -97,14 +99,16 @@ I16_SCALE = 16384.0  # Q2.14: covers [-2, 2); CAS clips to [0, 1] anyway
 def to_i16_storage(x: torch.Tensor) -> torch.Tensor:
     """float pre-CAS values -> int16 Q2.14 (round half to even, saturating,
     as jnp.round)."""
-    return torch.clamp(
-        torch.round(x.to(torch.float32) * I16_SCALE), -32768.0, 32767.0
-    ).to(torch.int16)
+    with span("vkr.codec"):
+        return torch.clamp(
+            torch.round(x.to(torch.float32) * I16_SCALE), -32768.0, 32767.0
+        ).to(torch.int16)
 
 
 def from_i16_storage(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """int16 Q2.14 -> float (inverse of to_i16_storage)."""
-    return x.to(dtype) * (1.0 / I16_SCALE)
+    with span("vkr.codec"):
+        return x.to(dtype) * (1.0 / I16_SCALE)
 
 
 def quantize_u8(x: torch.Tensor) -> torch.Tensor:

@@ -94,6 +94,7 @@ from ..ops.cas_cuda import (
 )
 from ..ops.spectrum import assemble_big_spectrum
 from ..ops.weave import weave_grid, weave_grid_u8, weave_rows_u8
+from ..utils.profiling import span
 
 
 def _irfft2(G: torch.Tensor, H: int, W: int) -> torch.Tensor:
@@ -226,11 +227,13 @@ def _pipeline(img_u8: torch.Tensor, banks, plan: UpscalePlan, engine: Engine,
         # coordinates on the device the same way, vkFFT.h:7640-7646)
         outs = [_pipeline(img_u8[..., c:c + 1], banks, plan, engine, planes_out, True)
                 for c in range(img_u8.shape[-1])]
-        if planes_out:
-            return tuple(torch.cat(ps, dim=-3) for ps in zip(*outs))
-        out = torch.cat(outs, dim=-3)
-        return out if planar_out else out.movedim(-3, -1).contiguous()
-    x_raw = img_u8.movedim(-1, -3).contiguous()  # planar (..., C, h, w), like the reference
+        with span("vkr.layout"):
+            if planes_out:
+                return tuple(torch.cat(ps, dim=-3) for ps in zip(*outs))
+            out = torch.cat(outs, dim=-3)
+            return out if planar_out else out.movedim(-3, -1).contiguous()
+    with span("vkr.layout"):
+        x_raw = img_u8.movedim(-1, -3).contiguous()  # planar (..., C, h, w), like the reference
     codec = (
         dict(store=cas_ops.to_i16_storage, load=cas_ops.from_i16_storage)
         if plan.precision is Precision.HALF
@@ -238,40 +241,57 @@ def _pipeline(img_u8: torch.Tensor, banks, plan: UpscalePlan, engine: Engine,
     )
     if plan.precision is Precision.DOUBLE:
         # no kernel: the float64 pre-CAS image, then the banded CAS
-        x = cas_ops.normalize_u8(x_raw, torch.float64)
-        out = cas_ops.cas_quantize_banded(_precas(x, plan, engine, banks), plan.sharpen)
+        with span("vkr.precas"):
+            v = _precas(cas_ops.normalize_u8(x_raw, torch.float64), plan, engine, banks)
+        with span("vkr.cas"):
+            out = cas_ops.cas_quantize_banded(v, plan.sharpen)
     elif banks is not None and ("cg_ay" in banks or "stx_b1" in banks or "sgx1_b1" in banks):
         # the staged forms: raw uint8 feeds the convolutions (/255 folded
         # into the x banks); the parity or phase planes go to the fused
         # per-parity CAS
-        if "cg_ay" in banks:
-            u, Ps = staged.c2c_grid_u(banks), staged.c2c_grid_staged(x_raw, banks, **codec)
-        elif "stx_b1" in banks:
-            u, Ps = 2, staged.r2c_quad_staged(x_raw, banks, **codec)
-        else:
-            u, Ps = staged.grid_u(banks), staged.r2c_grid_staged(x_raw, banks, **codec)
-        Pu8 = _grid_cas(Ps, u, plan.sharpen)
+        with span("vkr.precas"):
+            if "cg_ay" in banks:
+                u, Ps = staged.c2c_grid_u(banks), staged.c2c_grid_staged(x_raw, banks, **codec)
+            elif "stx_b1" in banks:
+                u, Ps = 2, staged.r2c_quad_staged(x_raw, banks, **codec)
+            else:
+                u, Ps = staged.grid_u(banks), staged.r2c_grid_staged(x_raw, banks, **codec)
+        with span("vkr.cas"):
+            Pu8 = _grid_cas(Ps, u, plan.sharpen)
         if planes_out:
             return Pu8
-        out = weave_grid_u8(Pu8, u)
+        with span("vkr.layout"):
+            out = weave_grid_u8(Pu8, u)
     elif banks is not None and "Ymat_ns" in banks:
         # row-split fast paths: raw uint8 feeds the x GEMM (/255 folded
         # into the banks), the y GEMM emits the non-sample rows
         fmt = _parity_route(plan)
         if fmt == "quad" and planes_out:
-            return cas_parity4_planes_u2(*dense.r2c_quad(x_raw, banks, **codec), plan.sharpen)
-        U, O = dense.r2c_rows(x_raw, banks, **codec)
+            with span("vkr.precas"):
+                Ps = dense.r2c_quad(x_raw, banks, **codec)
+            with span("vkr.cas"):
+                return cas_parity4_planes_u2(*Ps, plan.sharpen)
+        with span("vkr.precas"):
+            U, O = dense.r2c_rows(x_raw, banks, **codec)
         if fmt is not None:
-            E, D = cas_parity_planes_u2(U, O, plan.sharpen)
+            with span("vkr.cas"):
+                E, D = cas_parity_planes_u2(U, O, plan.sharpen)
             if planes_out:
                 return E, D
-            out = weave_rows_u8(E, D)
+            with span("vkr.layout"):
+                out = weave_rows_u8(E, D)
         else:
-            out = cas_quantize_rows_u(U, O, plan.integer_upscale, plan.sharpen)
+            with span("vkr.cas"):
+                out = cas_quantize_rows_u(U, O, plan.integer_upscale, plan.sharpen)
     else:
-        x = cas_ops.normalize_u8(x_raw)
-        out = cas_quantize(_precas(x, plan, engine, banks), plan.sharpen)
-    return out if planar_out else out.movedim(-3, -1).contiguous()
+        with span("vkr.precas"):
+            v = _precas(cas_ops.normalize_u8(x_raw), plan, engine, banks)
+        with span("vkr.cas"):
+            out = cas_quantize(v, plan.sharpen)
+    if planar_out:
+        return out
+    with span("vkr.layout"):
+        return out.movedim(-3, -1).contiguous()
 
 
 # the CAS kernels launch one block row per plane on grid.z (csrc/cas_grid.cu,
@@ -288,7 +308,7 @@ def _build(plan: UpscalePlan, device: torch.device, planes_out: bool,
     banks = make_device_banks(plan, engine, device, planes_out)
 
     def fn(img):
-        with fp32_matmul():  # see the module docstring
+        with span("vkr.call"), fp32_matmul():  # see the module docstring
             img = torch.as_tensor(img)
             if img.dtype != torch.uint8:
                 raise TypeError(f"expected uint8 image, got {img.dtype}")
