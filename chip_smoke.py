@@ -72,13 +72,28 @@ tier and the big tier beyond it) on the card at full frame sizes, and fails
               one-row halo (the whole image's output in bounded memory),
               compared on the card, each timed (10 wrapper calls); K3h at
               the large sp frame's S = 2 column shard (3, 8192, 8192), the
-              same way
+              same way; the cuFFT form's kernels, identical on every value
+              to their plain versions: K11 (the one-pass store) at the
+              flagship's woven image (3, 2048, 4096) and its batch of 8
+              (24, 2048, 4096), 1080p's (3, 2160, 3840), odd and single-
+              pixel planes and misaligned images, int16 (Q2.14, rounding
+              and saturation edges planted) and f32; K12 (the spectrum
+              shift) and K13 (the pad) at the flagship's spectra (n = 3
+              and 24, h = 1024, wf = 1025, H = 2048, kx = 1024, wp =
+              2049), 1080p's, odd widths, u = 3's rows and a 2x2 frame,
+              K13 also from a row-major input
   4. routes   each route through the entry point a user calls
               (build_upscale(plan, planes_out=True) as the CLI does, or
               upscale()) against the fp64 oracle (<= 1 LSB); every
               kernel's launch counter is set to 0 just before each route
               and read just after, and must be > 0 exactly for the
               route's kernels:
+                fft quad 2048x1024 -> 4096x2048 u=2, -p 2 and -p 0    K1, K11-K13
+                fft quad 1440x1080 -> 2880x2160 u=2, -p 2             K1, K11-K13
+                fft woven upscale() 1920x1080 -> 3840x2160, -p 2      K1, K11-K13
+                         (the cuFFT form, on a card whose tuning row
+                         names it, K1 alone elsewhere; the rows below
+                         pin -engine mxu)
                 quad     2048x1024 -> 4096x2048 u=2, -p 2 and -p 0    K1
                 rows     1440x1080 -> 2880x2160 u=2, -p 2 and -p 0    K2
                 woven    upscale() 2048x1024 -> 4096x2048, -p 2       K2
@@ -129,7 +144,8 @@ tier and the big tier beyond it) on the card at full frame sizes, and fails
               (50 wrapper calls, CUDA events; K4 at its three route shapes
               and K2 and K5 at their two, and beside them, printed only,
               the device time alone of K1, K2, K3, K3h, K4, K5, K6, K7,
-              K8, K9 and K10b: 50 calls replayed from one CUDA graph, since
+              K8, K9, K10b and K11-K13 (these three with their bound and
+              its share): 50 calls replayed from one CUDA graph, since
               K4's wrapper takes about as long on the host as its kernel on
               the device; K8 and K9 at both fused-y shapes, beside their
               unfused form's and its y GEMM's device time and the fp32 FMA
@@ -142,14 +158,17 @@ tier and the big tier beyond it) on the card at full frame sizes, and fails
               K3 beside K6 and K7 at their shape, K10c beside K3 and K10b
               beside K7 (bh 128 and 64) at (3, 2048, 4096), and the device
               grid weave
-  7. batched  build_batched_upscale (N = 3 seeded frames, the route's kernel
+  7. batched  build_batched_upscale (N = 3 seeded frames, the route's kernels
               launched once per batch with N*3 planes) on each kernel's route:
-              quad 2048x1024 -p 2 and -p 0 (K1), rows 1440x1080 (K2), u=3
+              the cuFFT form 2048x1024 -p 2 and -p 0 and 1440x1080 -p 2
+              (K11-K13 and K1 on a card whose row names it), -engine mxu
+              quad 2048x1024 -p 2 and -p 0 (K1) and rows 1440x1080 (K2), u=3
               1280x720 (K5), the 1.5x chain (K3), -c2c u=3 1280x720 (K4),
               the first and last frame <= 1 LSB from the fp64 oracle and every
               frame <= 1 LSB from the single-frame call; the folder CLI
               in-process on the card (12 seeded 2048x1024 frames, -u 2 -p 2
-              -batch 8 -numthreads 8: two K1 launches, every output <= 1 LSB
+              -batch 8 -numthreads 8: two launches of each route kernel,
+              every output <= 1 LSB
               from the single-frame pipeline, then -resume skipping all 12);
               then, printed only: device ms/frame of the batched call at N =
               1, 4, 8 beside build_upscale (-n 20, CUDA events, in turns), a
@@ -201,10 +220,14 @@ tier and the big tier beyond it) on the card at full frame sizes, and fails
                 fftn forward and inverse             (256, 256, 256)
                 rfftn -> irfftn        (256, 256, 256), (64, 96, 135)
               then the flagship CLI -u 2 -p 2 -n 5 in three alternating
-              pairs without and with -profile DIR (K1 launched in each),
-              whose torch.profiler traces must parse as JSON and name K1's
-              kernel and a GEMM; the first trace's five largest device
-              kernels printed
+              pairs without and with -profile DIR (K1, and K11-K13 on a
+              card whose row names the cuFFT tier, launched in each), and
+              once with -engine mxu -profile DIR (K1 alone), whose
+              torch.profiler traces must parse as JSON and name K1's
+              kernel and the route's transform (the cuFFT form's store
+              kernel K11 on a card whose row names that tier, else a
+              GEMM; a GEMM on -engine mxu); the first trace's five largest
+              device kernels printed
  10. sp, dp   K6's shard wrapper (cas_quantize_blocked_halo, the shard
               one block) at the flagship's shard shapes (3, 2048, 4096),
               (3, 1024, 4096) and (3, 512, 4096), and each column form's
@@ -235,15 +258,19 @@ tier and the big tier beyond it) on the card at full frame sizes, and fails
               batch, build_batched_upscale over [cuda:0, cuda:0] on 8
               flagship frames -p 2: each device's 4 frames identical to the
               one-device call on them, all 8 within 1 LSB of the one-device
-              batch of 8 (cuBLAS tiles by batch size), K1 once per device
+              batch of 8 (the GEMMs' and FFTs' tiles follow the batch
+              size), each route kernel once per device
  11. tuning, graft
               the card's row of core/tuning.py (its dense cap, or the
               default's) beside its name and power limit; of the u=2
               128-aligned plans scripts/torch_dense_cap_sweep.py sweeps,
               the two either side of the cap, each built for the card
-              (the bank set of its tier asserted: rows at or under the
-              cap, staged past it) and held within 1 LSB of its other tier
-              on the same seeded frame, K1 launched on both; then
+              (the bank set of its tier asserted: fft at or under the
+              cap on a row that names the cuFFT tier, else rows; staged
+              past it) and run on each of its tiers (the card's, the
+              dense GEMM one on -engine mxu, the staged one), each held
+              within 1 LSB of the staged tier on the same seeded frame, K1
+              launched on every tier; then
               graft_entry.entry()'s 256x512 -p 2 step within 1 LSB of the
               fp64 oracle, and graft_entry.dryrun_multichip(2) on the card
               (two dp entries on cuda:0, the sp cases at S = 2 over gloo),
@@ -285,13 +312,23 @@ TF32_OPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores (K8, K9)
 CAS_OPS_PER_PIXEL = 40  # cas_common.cuh: clip, min/max tree, blend, quantize
 QUANT_OPS_PER_PIXEL = 3  # cas_common.cuh::quantize_u8: multiply, two clamps
 
+# the cuFFT form's kernels (fft/cufft.py), launched once a call on the
+# r2c u=2 routes of a card whose tuning row names that tier; a card without
+# it runs none of them (card_kernels)
+FFT_FORM = {"K11", "K12", "K13"}
+FFT_RUN = {"K1"} | FFT_FORM
+
 # route name -> ((h, w), upscale, precision, engine, r2c, entry, kernels it runs)
 ROUTES = {
-    "quad -p 2": ((1024, 2048), 2.0, "HALF", "AUTO", True, "planes", {"K1"}),
-    "quad -p 0": ((1024, 2048), 2.0, "SINGLE", "AUTO", True, "planes", {"K1"}),
-    "rows -p 2": ((1080, 1440), 2.0, "HALF", "AUTO", True, "planes", {"K2"}),
-    "rows -p 0": ((1080, 1440), 2.0, "SINGLE", "AUTO", True, "planes", {"K2"}),
-    "woven upscale() -p 2": ((1024, 2048), 2.0, "HALF", "AUTO", True, "woven", {"K2"}),
+    "fft quad -p 2": ((1024, 2048), 2.0, "HALF", "AUTO", True, "planes", FFT_RUN),
+    "fft quad -p 0": ((1024, 2048), 2.0, "SINGLE", "AUTO", True, "planes", FFT_RUN),
+    "fft quad 1440 -p 2": ((1080, 1440), 2.0, "HALF", "AUTO", True, "planes", FFT_RUN),
+    "fft woven upscale() -p 2": ((1080, 1920), 2.0, "HALF", "AUTO", True, "woven", FFT_RUN),
+    "quad -p 2": ((1024, 2048), 2.0, "HALF", "MXU", True, "planes", {"K1"}),
+    "quad -p 0": ((1024, 2048), 2.0, "SINGLE", "MXU", True, "planes", {"K1"}),
+    "rows -p 2": ((1080, 1440), 2.0, "HALF", "MXU", True, "planes", {"K2"}),
+    "rows -p 0": ((1080, 1440), 2.0, "SINGLE", "MXU", True, "planes", {"K2"}),
+    "woven upscale() -p 2": ((1024, 2048), 2.0, "HALF", "MXU", True, "woven", {"K2"}),
     "u=3 -p 2": ((720, 1280), 3.0, "HALF", "AUTO", True, "woven", {"K5"}),
     "u=3 -p 0": ((720, 1280), 3.0, "SINGLE", "AUTO", True, "woven", {"K5"}),
     "u=4 -p 2": ((540, 960), 4.0, "HALF", "AUTO", True, "woven", {"K5"}),
@@ -341,6 +378,30 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def card_kernels(runs, dev):
+    """The kernels a run launches on this card: `runs` as written for a
+    card whose tuning row names the cuFFT tier, without the cuFFT form's
+    kernels on any other card."""
+    from vkresample_tpu_torch.core import tuning
+
+    return set(runs) if tuning.current(dev).dense_tier == "fft" else set(runs) - FFT_FORM
+
+
+def exact_diff(got, want):
+    """(max |diff|, share identical) over matching tensors of any dtype,
+    complex ones as their real and imaginary parts."""
+    import torch
+
+    def parts(x):
+        return torch.view_as_real(x) if x.is_complex() else x
+
+    d = max(float((parts(a).double() - parts(b).double()).abs().max()) if a.numel() else 0.0
+            for a, b in zip(got, want))
+    same = sum(int((parts(a) == parts(b)).sum()) for a, b in zip(got, want)) / max(
+        1, sum(parts(a).numel() for a in got))
+    return d, same
 
 
 def require(cond: bool, msg: str) -> None:
@@ -551,16 +612,21 @@ def cas_split_fn(plan, dev, kid: str, bh):
     return lambda img: quantize_cuda.copy_quantize_mono(woven(img), bh)
 
 
-# batched run -> ((h, w), upscale, precision, r2c, its kernel): N = 3 frames
-# through build_batched_upscale as the folder CLI calls it (the parity planes
-# where the route has them, else planar frames)
+# batched run -> ((h, w), upscale, precision, engine, r2c, its kernels):
+# N = 3 frames through build_batched_upscale as the folder CLI calls it (the
+# parity planes where the route has them, else planar frames); the fft
+# runs take the cuFFT form on a card whose row names it, the quad and rows
+# runs pin -engine mxu (the GEMM forms every other card runs)
 BATCHED = {
-    "quad -p 2": ((1024, 2048), 2.0, "HALF", True, "K1"),
-    "quad -p 0": ((1024, 2048), 2.0, "SINGLE", True, "K1"),
-    "rows -p 2": ((1080, 1440), 2.0, "HALF", True, "K2"),
-    "u=3 -p 2": ((720, 1280), 3.0, "HALF", True, "K5"),
-    "chain 1.5x -p 0": ((720, 1280), 1.5, "SINGLE", True, "K3"),
-    "c2c grid u=3 -p 2": ((720, 1280), 3.0, "HALF", False, "K4"),
+    "fft quad -p 2": ((1024, 2048), 2.0, "HALF", "AUTO", True, FFT_RUN),
+    "fft quad -p 0": ((1024, 2048), 2.0, "SINGLE", "AUTO", True, FFT_RUN),
+    "fft 1440 -p 2": ((1080, 1440), 2.0, "HALF", "AUTO", True, FFT_RUN),
+    "quad -p 2": ((1024, 2048), 2.0, "HALF", "MXU", True, {"K1"}),
+    "quad -p 0": ((1024, 2048), 2.0, "SINGLE", "MXU", True, {"K1"}),
+    "rows -p 2": ((1080, 1440), 2.0, "HALF", "MXU", True, {"K2"}),
+    "u=3 -p 2": ((720, 1280), 3.0, "HALF", "AUTO", True, {"K5"}),
+    "chain 1.5x -p 0": ((720, 1280), 1.5, "SINGLE", "AUTO", True, {"K3"}),
+    "c2c grid u=3 -p 2": ((720, 1280), 3.0, "HALF", "AUTO", False, {"K4"}),
 }
 BATCH_N = 3
 FOLDER_FRAMES = 12  # -batch 8: a batch of 8, then a tail of 4
@@ -632,29 +698,31 @@ def batched_phase(dev, card, kernels, oracles, image, zero_counters):
     from vkresample_tpu_torch.io.folder import frame_paths
     from vkresample_tpu_torch.oracle.numpy_ref import upscale_oracle
     from vkresample_tpu_torch.pipeline.timing import time_amortized
+    from vkresample_tpu_torch.core.tuning import plan_for
     from vkresample_tpu_torch.pipeline.upscale import planes_format
 
     def counts():
         return {kid: k.get("wrapper", k["fn"]).launches for kid, k in kernels.items()}
 
-    def expect_launches(run, kid, n):
-        got = counts()
-        require(got[kid] == n and sum(got.values()) == n,
-                f"{run}: launches {got}, expected {n} of {kid} and none else")
-        kernels[kid]["launches"] += n
+    def expect_launches(run, kids, n):
+        got, kids = counts(), card_kernels(kids, dev)
+        require(all(got[kid] == n for kid in kids) and sum(got.values()) == n * len(kids),
+                f"{run}: launches {got}, expected {n} of each of {sorted(kids)} and none else")
+        for kid in kids:
+            kernels[kid]["launches"] += n
         return got
 
     last_oracles = {}
-    for run, ((h, w), u, prec, r2c, kid) in BATCHED.items():
+    for run, ((h, w), u, prec, engine, r2c, kids) in BATCHED.items():
         plan = UpscalePlan(h=h, w=w, upscale=u, precision=Precision[prec], r2c=r2c,
-                           engine=Engine.AUTO)
+                           engine=Engine[engine])
         rng = np.random.default_rng(SEED + 7 + h + w)
         frames = np.stack([image(h, w)] + [rng.integers(0, 256, (h, w, C), np.uint8)
                                            for _ in range(BATCH_N - 1)])
         key = (h, w, u, r2c)
         if key not in last_oracles:
             last_oracles[key] = upscale_oracle(frames[-1], plan)
-        fmt = planes_format(plan)
+        fmt = planes_format(plan_for(plan, dev))  # the layout on this card's row
         fn = build_batched_upscale(plan, dev, planar_out=True, planes_out=fmt is not None)
         x = torch.from_numpy(frames).to(dev)
         fn(x)  # banks built, uploaded
@@ -662,7 +730,7 @@ def batched_phase(dev, card, kernels, oracles, image, zero_counters):
         zero_counters()
         out = fn(x)
         torch.cuda.synchronize()
-        got_counts = expect_launches(f"batched {run}", kid, 1)
+        got_counts = expect_launches(f"batched {run}", kids, 1)
         got = batch_frames_hwc(out, fmt, plan)
         require(len(got) == BATCH_N and all(g.shape == (plan.H, plan.W, C) for g in got),
                 f"batched {run}: bad output {[g.shape for g in got]}")
@@ -684,7 +752,7 @@ def batched_phase(dev, card, kernels, oracles, image, zero_counters):
     inp, outp, outp24 = (os.path.join(root, d) for d in ("inp", "outp", "outp24"))
     for d in (inp, outp, outp24):
         os.makedirs(d)
-    (h, w), u, prec = BATCHED["quad -p 2"][:3]
+    (h, w), u, prec = BATCHED["fft quad -p 2"][:3]
     plan = UpscalePlan(h=h, w=w, upscale=u, precision=Precision[prec])
     rng = np.random.default_rng(SEED + 12)
     frames = rng.integers(0, 256, (RATE_FRAMES, h, w, C), np.uint8)
@@ -697,7 +765,7 @@ def batched_phase(dev, card, kernels, oracles, image, zero_counters):
     for line in lines:
         print(f"[7 batched] cli: {line}")
     require(rc == 0, f"folder CLI exited {rc}")
-    print(f"[7 batched] cli launches {expect_launches('folder CLI', 'K1', 2)}")
+    print(f"[7 batched] cli launches {expect_launches('folder CLI', FFT_RUN, 2)}")
     single = build_upscale(plan, dev, planes_out=True, planar_out=True)
     worst, same_all = 0, []
     for f, path in zip(frames, frame_paths(outp, FOLDER_FRAMES)):
@@ -724,7 +792,7 @@ def batched_phase(dev, card, kernels, oracles, image, zero_counters):
             _, ms = time_amortized(fn, (x8[:n],), 20, dev)
             ms /= n
         what = "build_upscale, one frame" if n == 0 else f"build_batched_upscale N = {n}"
-        print(f"[7 batched] times: {what}: {ms:.4f} ms/frame (quad -p 2 {w}x{h} -> "
+        print(f"[7 batched] times: {what}: {ms:.4f} ms/frame (-u 2 -p 2 {w}x{h} -> "
               f"{plan.W}x{plan.H}, -n 20 calls, CUDA events) on {card}")
 
     # host <-> device transfers of one batch of 8, pageable memory as the loop has it
@@ -871,6 +939,7 @@ def big_phase(dev, card, oracles, launches_of, zero_counters):
     from vkresample_tpu_torch.io.png import write_png
     from vkresample_tpu_torch.ops.weave import weave_grid_u8
     from vkresample_tpu_torch.pipeline.timing import time_amortized
+    from vkresample_tpu_torch.core.tuning import plan_for
     from vkresample_tpu_torch.pipeline.upscale import planes_format, route_engine
 
     # a bank cache of the smoke run's own, empty, so the cold builds are cold
@@ -895,7 +964,7 @@ def big_phase(dev, card, oracles, launches_of, zero_counters):
                      else "built again (below the cache's size gate)")
             banks = (f"bank set {mxu_pipeline.bank_set(plan)} built in {cold:.3f} s cold, "
                      f"{time.perf_counter() - t0:.3f} s {again}")
-        fmt = planes_format(plan) if entry == "planes" else None
+        fmt = planes_format(plan_for(plan, dev)) if entry == "planes" else None
         require(entry == "woven" or fmt is not None, f"{run}: no parity planes")
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1050,6 +1119,7 @@ def engine_phase(dev, card, engine_jobs, launches_of, zero_counters):
     import numpy as np
     import torch
 
+    from vkresample_tpu_torch.core import tuning
     from vkresample_tpu_torch.fft.ndim import fftn, irfftn, rfftn
     from vkresample_tpu_torch.io.png import write_png
     from vkresample_tpu_torch.ops import convolve as conv_mod
@@ -1120,10 +1190,24 @@ def engine_phase(dev, card, engine_jobs, launches_of, zero_counters):
             t = [float(line.split(" Time: ")[1].split()[0]) for line in lines if " Time: " in line]
             require(rc == 0 and t, f"{label} exited {rc} or printed no Time: line")
             times[label] += t
-            launches_of(f"{label} (pair {i})", {"K1"})
+            launches_of(f"{label} (pair {i})", FFT_RUN)
         found = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
         require(len(found) == 1, f"-profile wrote {found}")
         traces += found
+    # and once on -engine mxu: the dense GEMM quad + K1 every card without
+    # the cuFFT row runs
+    trace_dir = os.path.join(trace_root, "mxu")
+    zero_counters()
+    rc, lines = run_cli(argv + ["-engine", "mxu", "-profile", trace_dir])
+    for line in lines:
+        print(f"[9 engine] cli -engine mxu -profile: {line}")
+    require(rc == 0 and any(" Time: " in line for line in lines),
+            f"cli -engine mxu -profile exited {rc} or printed no Time: line")
+    launches_of("cli -engine mxu -profile", {"K1"})
+    found = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    require(len(found) == 1, f"-profile wrote {found}")
+    mxu_trace = found[0]
+    traces += found
     print(f"[9 engine] the flagship -u 2 -p 2 -n 5, Time: ms in run order, pairs alternated: "
           f"without -profile {times['cli']}, with it {times['cli -profile']}; medians "
           f"{float(np.median(times['cli'])):.3f} and {float(np.median(times['cli -profile'])):.3f}"
@@ -1144,8 +1228,12 @@ def engine_phase(dev, card, engine_jobs, launches_of, zero_counters):
                       f"warm-up and -n 5 frames): {name[:140]}")
         require(any(PROFILE_TRACE_KERNEL in name for name in kernel_us),
                 f"the -profile trace {trace} names no {PROFILE_TRACE_KERNEL} (K1)")
-        require(any("gemm" in name.lower() for name in kernel_us),
-                f"the -profile trace {trace} names no GEMM kernel")
+        # the flagship's transform: the cuFFT form's store kernel where the
+        # card's row names that tier, the GEMMs on -engine mxu and elsewhere
+        fft = tuning.current(dev).dense_tier == "fft" and trace != mxu_trace
+        want = "quad_store_kernel" if fft else "gemm"
+        require(any(want in name.lower() for name in kernel_us),
+                f"the -profile trace {trace} names no {want} kernel")
 
 
 # phase 10, the sp pencil mode: case -> (pencil form, (h, w), upscale,
@@ -1385,8 +1473,9 @@ def sp_phase(dev, card, kernels, oracles, image, launches_of, zero_counters):
 
     # dp: a batch split over [cuda:0, cuda:0]; each device's share against
     # the one-device call on the same frames (identical), the whole against
-    # the one-device batch of all of them (cuBLAS picks its GEMM tiles by
-    # the batch's size, so that is within 1 LSB, as in phase 7)
+    # the one-device batch of all of them (cuBLAS and cuFFT pick their
+    # tiles and plans by the batch's size, so that is within 1 LSB, as in
+    # phase 7)
     plan = UpscalePlan(h=1024, w=2048, upscale=2.0, precision=Precision.HALF)
     frames = torch.from_numpy(np.random.default_rng(SEED + 10).integers(
         0, 256, (DP_FRAMES, 1024, 2048, C), np.uint8))
@@ -1401,8 +1490,9 @@ def sp_phase(dev, card, kernels, oracles, image, launches_of, zero_counters):
     zero_counters()
     two = build_batched_upscale(plan, [dev, dev], planes_out=True)(frames)
     torch.cuda.synchronize()
-    counts = launches_of("dp quad -p 2", {"K1"})
-    require(counts["K1"] == 2, f"dp: K1 launched {counts['K1']} times, expected once a device")
+    counts = launches_of("dp quad -p 2", FFT_RUN)
+    require(all(counts[kid] == 2 for kid in card_kernels(FFT_RUN, dev)),
+            f"dp: launches {counts}, expected each route kernel once a device")
     d_share = max(dev_diff(part, share)[0] for part, share in zip(two, shares))
     d_whole, same = dev_diff([torch.cat([part[i] for part in two]) for i in range(4)], whole)
     print(f"[10 dp] quad -p 2 {DP_FRAMES} x 2048x1024 over [{dev}, {dev}]: max|diff| vs the "
@@ -1440,7 +1530,7 @@ def tuning_phase(dev, card, launches_of, zero_counters):
     import numpy as np
     import torch
 
-    from vkresample_tpu_torch import Precision, UpscalePlan, build_upscale, graft_entry
+    from vkresample_tpu_torch import Engine, Precision, UpscalePlan, build_upscale, graft_entry
     from vkresample_tpu_torch.core import tuning
     from vkresample_tpu_torch.fft import mxu_pipeline
     from vkresample_tpu_torch.oracle.numpy_ref import upscale_oracle
@@ -1456,26 +1546,39 @@ def tuning_phase(dev, card, launches_of, zero_counters):
     for plan in [below] + above:
         n = max(plan.H, plan.W)
         card_tag = mxu_pipeline.bank_set(tuning.plan_for(plan, dev))
-        want_tag = "staged" if n > row.dense_max else "rows"
+        want_tag = ("staged" if n > row.dense_max
+                    else "fft" if row.dense_tier == "fft" else "rows")
         require(card_tag == want_tag, f"tuning: {plan.w}x{plan.h} takes {card_tag} on the "
                 f"card, expected {want_tag}")
-        other = dataclasses.replace(plan, dense_max=n - 1 if want_tag == "rows" else n)
+        # the card's tier, the dense GEMM tier (-engine mxu, a cap at the
+        # axis) and the staged tier (a cap under it), each once
+        tiers = {}
+        for label, p in (("card's", plan),
+                         ("dense GEMM", dataclasses.replace(plan, dense_max=n, engine=Engine.MXU)),
+                         ("staged", dataclasses.replace(plan, dense_max=n - 1))):
+            tiers.setdefault(mxu_pipeline.bank_set(tuning.plan_for(p, dev)), (label, p))
+        require("staged" in tiers and len(tiers) >= 2, f"tuning: tiers {sorted(tiers)}")
         x = torch.from_numpy(seeded_image(plan.h, plan.w)).to(dev)
         outs = {}
-        for label, p in (("card's", plan), ("other", other)):
+        for tag, (label, p) in tiers.items():
             zero_counters()
             t0 = time.perf_counter()
-            outs[label] = build_upscale(p, dev, planes_out=True)(x)
+            outs[tag] = build_upscale(p, dev, planes_out=True)(x)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            counts = launches_of(f"tuning {plan.w}x{plan.h} {label}", {"K1"})
+            counts = launches_of(f"tuning {plan.w}x{plan.h} {label}",
+                                 FFT_RUN if tag == "fft" else {"K1"})
             print(f"[11 tuning] {plan.w}x{plan.h} -> {plan.W}x{plan.H} -p 2 on the "
-                  f"{label} tier ({mxu_pipeline.bank_set(tuning.plan_for(p, dev))}): first "
-                  f"frame in {secs:.3f} s; launches {counts}")
-        d, same = dev_diff(outs["card's"], outs["other"])
-        print(f"[11 tuning] {plan.w}x{plan.h} (axis {n}, cap {row.dense_max}): the card's tier "
-              f"{card_tag} vs the other: max|diff| {d} LSB, identical {same:.6f} on {card}")
-        require(d <= TOL_LSB, f"tuning: the two tiers of {plan.w}x{plan.h} differ by {d} LSB")
+                  f"{label} tier ({tag}): first frame in {secs:.3f} s; launches {counts}")
+        for tag in tiers:
+            if tag == "staged":
+                continue
+            d, same = dev_diff(outs[tag], outs["staged"])
+            print(f"[11 tuning] {plan.w}x{plan.h} (axis {n}, cap {row.dense_max}, the card's "
+                  f"tier {card_tag}): the {tag} tier vs the staged: max|diff| {d} LSB, "
+                  f"identical {same:.6f} on {card}")
+            require(d <= TOL_LSB, f"tuning: the {tag} and staged tiers of {plan.w}x{plan.h} "
+                    f"differ by {d} LSB")
         del outs, x
         torch.cuda.empty_cache()
 
@@ -1533,11 +1636,12 @@ def run(pool) -> int:
     from vkresample_tpu_torch import Engine, Precision, UpscalePlan, _build, build_upscale, upscale
     from vkresample_tpu_torch.fft import dense
     from vkresample_tpu_torch.io.png import read_png, write_png
-    from vkresample_tpu_torch.ops import cas_cuda, quantize_cuda, ycas_cuda
+    from vkresample_tpu_torch.ops import cas_cuda, fft_cuda, quantize_cuda, ycas_cuda
     from vkresample_tpu_torch.ops.cas import quantize_u8, to_i16_storage
     from vkresample_tpu_torch.ops.weave import weave_grid_u8, weave_rows_u8
     from vkresample_tpu_torch.oracle.numpy_ref import upscale_oracle
     from vkresample_tpu_torch.pipeline.timing import time_amortized
+    from vkresample_tpu_torch.core.tuning import plan_for
     from vkresample_tpu_torch.pipeline.upscale import (
         _pipeline,
         fp32_matmul,
@@ -1675,6 +1779,55 @@ def run(pool) -> int:
     def quant_bound(v):
         """A copy-quantize probe reads v once and writes as many uint8."""
         return bound(v.numel() * 5, v.numel() * QUANT_OPS_PER_PIXEL)
+
+    # the cuFFT form's kernels: the flagship's one frame and batch of 8
+    # (8 x 3 planes), 1080p's rows-route width, then odd widths, u = 3's
+    # rows (the shift), single rows and columns, and misaligned inputs
+    flag_scale = float(np.float32(4.0 / (255.0 * 2048 * 4096)))  # fft/cufft.py::store_scale
+    store_edges = [0.5, 1.5, -0.5, -1.5, 0.49999997, 0.50000006, 0.0, 32767.5, -32768.5, 1e9]
+
+    def store_args(case, dt):
+        """(v, scale, i16) of a K11 case (the woven float32 image's shape,
+        or (shape, "misaligned")): the image in the C2R's raw units, CAS
+        values over [-0.1, 1.2) with Q2.14's rounding and saturation edges
+        planted; dt int16 stores Q2.14, float32 stores float32."""
+        shape, mis = tagged(case)
+        v = planes(shape, 1, torch.float32)[0] / flag_scale
+        edge = torch.tensor(store_edges, dtype=torch.float64, device=dev)
+        edge /= fft_cuda.store_factor(flag_scale, True)
+        n = min(v.numel(), edge.numel())
+        v.view(-1)[:n] = edge[:n].to(torch.float32)
+        return (misaligned(v) if mis else v), flag_scale, dt == torch.int16
+
+    def store_bound(a):
+        """K11 reads the image once and writes as many int16 or float32."""
+        v, out_bytes = a[0], 2 if a[2] else 4
+        return bound(v.numel() * (4 + out_bytes), v.numel() * 3)
+
+    def spectrum_geometry(case):
+        """(n, h, wf, H, kx, klo, khi) of a K12/K13 case ((n, h, w), u)."""
+        (n, h, w), u = case[:2]
+        p = UpscalePlan(h=h, w=w, upscale=u)
+        return n, h, w // 2 + 1, p.H, p.kept_lo_x, p.kept_lo_y, p.kept_hi_y, p.W // 2 + 1
+
+    def complex_randn(shape):
+        return torch.complex(torch.randn(shape, generator=gen, device=dev),
+                             torch.randn(shape, generator=gen, device=dev))
+
+    def shift_args(case, dt):
+        """(F, H, kx, klo, khi): the frame's seeded half spectrum."""
+        n, h, wf, H, kx, klo, khi, _ = spectrum_geometry(case)
+        return complex_randn((n, h, wf)), H, kx, klo, khi
+
+    def pad_args(case, dt):
+        """(g, wp): the y inverse's output stored y innermost, as the route
+        has it, or row-major for a case ending in "row-major"."""
+        n, _, _, H, kx, _, _, wp = spectrum_geometry(case)
+        g = complex_randn((n, kx, H)).transpose(-1, -2)
+        return (g.contiguous() if case[-1] == "row-major" else g), wp
+
+    spectrum_cases = ([((C, 1024, 2048), 2), ((8 * C, 1024, 2048), 2), ((C, 1080, 1920), 2)]
+                      + [((2, 30, 50), 2), ((2, 38, 301), 2), ((2, 32, 64), 3), ((1, 2, 2), 2)])
 
     def k5_unfused(U, O, u, s):
         """The unfused form K5 replaces: weave_rows + K3."""
@@ -1908,6 +2061,49 @@ def run(pool) -> int:
         ),
     }
 
+    kernels |= {
+        "K11": dict(
+            name="quad_store", wrapper=fft_cuda.quad_store,
+            fn=lambda v, scale, i16, s: fft_cuda.quad_store(v, scale, i16),
+            plain=lambda v, scale, i16, s: fft_cuda.quad_store_reference(v, scale, i16),
+            source="vkresample_tpu_torch/csrc/quad_store.cu",
+            replaces="none (the cuFFT form's one-pass store)",
+            # the flagship's woven image, one frame and the batch of 8, then
+            # odd plane widths, a single pixel per plane, misaligned images
+            cases=[(C, 2048, 4096), (8 * C, 2048, 4096), (C, 2160, 3840), (2, 6, 10),
+                   (2, 30, 50), (1, 2, 2), ((C, 64, 128), "misaligned"),
+                   ((C, 2048, 4096), "misaligned")],
+            dtypes=(torch.int16, torch.float32),
+            args=store_args, bound=store_bound, exact=True, diff=exact_diff, timed=2,
+        ),
+        "K12": dict(
+            name="spectrum_shift", wrapper=fft_cuda.spectrum_shift,
+            fn=lambda F, H, kx, klo, khi, s: fft_cuda.spectrum_shift(F, H, kx, klo, khi),
+            plain=lambda F, H, kx, klo, khi, s: fft_cuda.spectrum_shift_reference(
+                F, H, kx, klo, khi),
+            source="vkresample_tpu_torch/csrc/spectrum_shift.cu",
+            replaces="none (VkResample's shift shader, VkResample.cpp:476-548)",
+            cases=spectrum_cases,
+            dtypes=(torch.complex64,),
+            # the kept rows' kx columns read, the (H, kx) spectrum written
+            bound=lambda a: bound(8 * a[0][..., 0, 0].numel() * a[2] * (a[3] + a[4] + a[1]), 0),
+            args=shift_args, exact=True, diff=exact_diff, timed=2,
+        ),
+        "K13": dict(
+            name="spectrum_pad", wrapper=fft_cuda.spectrum_pad,
+            fn=lambda g, wp, s: fft_cuda.spectrum_pad(g, wp),
+            plain=lambda g, wp, s: fft_cuda.spectrum_pad_reference(g, wp),
+            source="vkresample_tpu_torch/csrc/spectrum_shift.cu",
+            replaces="none (the C2R's zero padding, row-major)",
+            cases=spectrum_cases + [((2, 30, 50), 2, "row-major")],
+            dtypes=(torch.complex64,),
+            # the (H, kx) input read, the (H, wp) C2R input written
+            bound=lambda a: bound(8 * a[0].numel() // a[0].shape[-1] * (a[0].shape[-1] + a[1]),
+                                  0),
+            args=pad_args, exact=True, diff=exact_diff, timed=2,
+        ),
+    }
+
     def call(k, which, args):
         """Kernel (which="fn"), plain version ("plain"), unfused form
         ("unfused") or the form it is held against ("vs") on the arguments;
@@ -1941,7 +2137,7 @@ def run(pool) -> int:
                 args = k["args"](case, dt)
                 got = call(k, "fn", args)
                 bounded_sync(f"{kid} at {case}", KERNEL_TIMEOUT_S)
-                d, same = u8_diff(got, call(k, "plain", args))
+                d, same = k.get("diff", u8_diff)(got, call(k, "plain", args))
                 form = getattr(k.get("wrapper", k["fn"]), "staging", None)  # K1-K3, K7, K10b
                 print(f"[3 kernels] {kid} {k['name']} {case} {dt}: max|diff| {d} LSB, "
                       f"identical {same:.6f}" + (f"; staging {form}" if form else ""))
@@ -2016,6 +2212,7 @@ def run(pool) -> int:
 
     def launches_of(run_name, runs):
         """Read and check every kernel's counter after a run."""
+        runs = card_kernels(runs, dev)
         counts = {kid: k.get("wrapper", k["fn"]).launches for kid, k in kernels.items()}
         for kid, n in counts.items():
             require((n > 0) == (kid in runs),
@@ -2042,7 +2239,7 @@ def run(pool) -> int:
             oracles[key] = upscale_oracle(img, plan)
             print(f"[4 routes] fp64 oracle {w}x{h} -> {plan.W}x{plan.H} "
                   f"{'r2c' if r2c else 'c2c'} in {time.perf_counter() - t0:.3f} s")
-        fmt = planes_format(plan) if entry == "planes" else None
+        fmt = planes_format(plan_for(plan, dev)) if entry == "planes" else None
         require(entry == "woven" or fmt is not None, f"{route}: no parity planes")
         zero_counters()
         t0 = time.perf_counter()
@@ -2239,7 +2436,8 @@ def run(pool) -> int:
     # only; for K8 and K9 also their unfused form's and its y GEMM's alone,
     # for K7 and K10b K3's and K10c's alone on the same image and each
     # one's bound and share of it
-    for kid in ("K1", "K2", "K3", "K3h", "K4", "K5", "K6", "K7", "K8", "K9", "K10b"):
+    for kid in ("K1", "K2", "K3", "K3h", "K4", "K5", "K6", "K7", "K8", "K9", "K10b", "K11", "K12",
+                "K13"):
         k = kernels[kid]
         for case, dt in ((case, dt) for case in k["cases"][:k.get("timed", 1)]
                          for dt in k.get("dtypes", (torch.int16, torch.float32))):
@@ -2249,6 +2447,9 @@ def run(pool) -> int:
             if kid in ("K8", "K9"):
                 extra = (f"; unfused form {graph_ms(lambda: call(k, 'unfused', args), 50):.4f} "
                          f"ms, its y GEMM {graph_ms(lambda: ycas_gemm(*args), 50):.4f} ms")
+            elif kid in FFT_FORM:
+                b = k["bound"](args)[0]
+                extra = f", bound {b:.4f} ms, share {b / alone:.3f}"
             elif "beside" in k:
                 label, form = k["beside"]
                 other = graph_ms(lambda: form(*args, 0.2), 50)

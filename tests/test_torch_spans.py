@@ -13,31 +13,40 @@ from vkresample_tpu_torch.fft import mxu_pipeline
 from vkresample_tpu_torch.pipeline import upscale as tpipe
 from vkresample_tpu_torch.utils import profiling
 
-STAGES = {"vkr.layout", "vkr.precas", "vkr.precas.x", "vkr.precas.y", "vkr.codec", "vkr.cas"}
+STAGES = {"vkr.layout", "vkr.precas", "vkr.precas.x", "vkr.precas.y", "vkr.precas.fft",
+          "vkr.codec", "vkr.cas"}
 COMPUTE = {"aten::mm", "aten::bmm", "aten::matmul", "aten::einsum", "aten::mul", "aten::add",
            "aten::sub", "aten::clamp", "aten::round", "aten::copy_", "aten::_to_copy"}
 LOW = 64  # a card's dense cap below the staged case's axes (tests/test_torch_tuning.py)
+LOW_ROW = tuning.DeviceTuning(dense_max=LOW)
+FFT_ROW = tuning.DeviceTuning(dense_max=4608, dense_tier="fft")  # the H100's row
+XY = ("vkr.precas.x", "vkr.precas.y")
 
-# (id, plan, planes_out, the cap of a card's row or None, the bank set the
-# route reads, spans under vkr.call: layouts, x and y passes, codec calls
+# (id, plan, planes_out, a card's row or None, the bank set the route reads,
+# spans under vkr.call: layouts, the pass spans in vkr.precas, codec calls
 # inside vkr.precas)
 ROUTES = [
-    ("quad-p2", dict(h=64, w=128, precision=Precision.HALF), True, None, "rows", (1, 1, 6)),
-    ("staged-quad-p2", dict(h=32, w=128, precision=Precision.HALF), True, LOW, "staged",
-     (1, 1, 6)),
+    ("quad-p2", dict(h=64, w=128, precision=Precision.HALF), True, None, "rows", (1, XY, 6)),
+    ("staged-quad-p2", dict(h=32, w=128, precision=Precision.HALF), True, LOW_ROW, "staged",
+     (1, XY, 6)),
     ("rows-p2-woven", dict(h=32, w=96, precision=Precision.HALF), False, None, "rows",
-     (3, 0, 3)),
-    ("quad-p0", dict(h=64, w=128, precision=Precision.SINGLE), True, None, "rows", (1, 1, 0)),
+     (3, (), 3)),
+    ("quad-p0", dict(h=64, w=128, precision=Precision.SINGLE), True, None, "rows", (1, XY, 0)),
+    ("fft-quad-p2", dict(h=64, w=128, precision=Precision.HALF), True, FFT_ROW, "fft",
+     (1, ("vkr.precas.fft",), 1)),
+    ("fft-quad-p0-woven", dict(h=32, w=96, precision=Precision.SINGLE), False, FFT_ROW, "fft",
+     (3, ("vkr.precas.fft",), 0)),
 ]
 
 
 @pytest.fixture
 def route(request, monkeypatch):
     """(fn, img, counts) of one ROUTES entry; the staged case takes a card
-    row with a low dense cap, the pipeline cache cleared around it."""
-    _, kw, planes_out, cap, tag, counts = request.param
-    if cap is not None:
-        monkeypatch.setattr(tuning, "_row", lambda device: tuning.DeviceTuning(dense_max=cap))
+    row with a low dense cap and the cuFFT cases the H100's row, the
+    pipeline cache cleared around it."""
+    _, kw, planes_out, row, tag, counts = request.param
+    if row is not None:
+        monkeypatch.setattr(tuning, "_row", lambda device: row)
     tpipe._build.cache_clear()
     plan = UpscalePlan(upscale=2.0, channels=3, **kw)
     assert mxu_pipeline.bank_set(tuning.plan_for(plan, "cpu")) == tag
@@ -74,7 +83,7 @@ def _outputs(out):
 
 @pytest.mark.parametrize("route", ROUTES, ids=[r[0] for r in ROUTES], indirect=True)
 def test_each_call_is_one_tree_of_stage_spans(route):
-    fn, img, (layouts, xy, codecs) = route
+    fn, img, (layouts, passes_want, codecs) = route
     fn(img)  # the banks and any lazy set-up outside the trace
     _, evs = _traced(fn, img)
     spans = [e for e in evs if e[3] and e[2].startswith("vkr.")]
@@ -86,7 +95,7 @@ def test_each_call_is_one_tree_of_stage_spans(route):
     assert names(call) == sorted(["vkr.layout"] * layouts + ["vkr.precas", "vkr.cas"])
     (precas,) = [s for s in spans if s[2] == "vkr.precas"]
     passes = [n for n in names(precas) if n != "vkr.codec"]
-    assert passes == ["vkr.precas.x", "vkr.precas.y"] * xy
+    assert passes == list(passes_want)
     assert sum(s[2] == "vkr.codec" and _inside(s, precas) for s in spans) == codecs
     for s, q in parent.items():
         if s[2] == "vkr.codec":  # in the transform, or the plain CAS's load on the CPU

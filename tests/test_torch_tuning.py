@@ -129,6 +129,23 @@ def test_a_low_row_keeps_other_plans_and_raises_nothing(low_row, kw):
     assert tpipe._parity_route(tuned) == tpipe._parity_route(plan)
 
 
+@pytest.mark.parametrize("row,tier,tag", [
+    (tuning.DeviceTuning(dense_max=4608, dense_tier="fft"), "fft", "fft"),  # the H100's
+    (tuning.DeviceTuning(dense_max=4608), "gemm", "rows"),
+    (None, "gemm", "rows"),  # no row: the CPU, a card not in the table
+])
+def test_plan_for_fills_the_tier(monkeypatch, row, tier, tag):
+    """plan_for fills the row's tier beside its cap; a card with no row
+    keeps the plan, and the dense GEMM tier with it."""
+    monkeypatch.setattr(tuning, "_row", lambda device: row)
+    plan = UpscalePlan(h=64, w=128, upscale=2.0, precision=Precision.HALF)
+    tuned = tuning.plan_for(plan, "cpu")
+    assert tuned.dense_tier == tier
+    assert tuned.dense_max == (row.dense_max if row else None)
+    assert mxu_pipeline.bank_set(tuned) == tag
+    assert tpipe.planes_format(tuned) == "quad"
+
+
 def test_a_caller_set_cap_is_kept(low_row):
     plan = UpscalePlan(h=32, w=128, upscale=2.0, dense_max=4096)
     assert tuning.plan_for(plan, "cpu") is plan
@@ -309,8 +326,10 @@ def test_new_modules_import_no_jax():
 
 def test_the_h100_row():
     """The table's one row, from the sweep: the H100 SXM part's name takes
-    dense_max 4608; the parts not measured keep the default."""
+    dense_max 4608 and the cuFFT tier below it; the parts not measured keep
+    the default."""
     tuning.row_for_name.cache_clear()
-    assert tuning.row_for_name("NVIDIA H100 80GB HBM3") == tuning.DeviceTuning(dense_max=4608)
+    assert tuning.row_for_name("NVIDIA H100 80GB HBM3") == tuning.DeviceTuning(
+        dense_max=4608, dense_tier="fft")
     for name in ("NVIDIA H100 PCIe", "NVIDIA H100 NVL", "NVIDIA A100-SXM4-80GB"):
         assert tuning.row_for_name(name) is None

@@ -38,7 +38,7 @@ last_build = {"compiled": False, "seconds": 0.0, "path": None}
 # one csrc/*.cu, and their arguments before the stream, which every entry
 # takes last; each returns a cudaError_t as int.
 _PTR, _PTRS, _I32 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
-_F32 = ctypes.c_float  # the sharpen factor
+_F32 = ctypes.c_float  # the sharpen factor; the quad store's scale
 ENTRY_POINTS = {
     "vkr_cas_quad_u2": [_PTR] * 8 + [_I32] * 4 + [_F32],    # P00..P11, O00..O11; C, h, Wh, is_i16
     "vkr_cas_parity_u2": [_PTR] * 4 + [_I32] * 4 + [_F32],  # U, O, E, D; C, h, W, is_i16
@@ -54,6 +54,9 @@ ENTRY_POINTS = {
     "vkr_copy_quantize_tile": [_PTR] * 2 + [_I32] * 3,      # v, out; C, H, W
     "vkr_copy_quantize_mono": [_PTR] * 2 + [_I32] * 4,      # v, out; C, H, W, bh
     "vkr_copy_quantize_rows": [_PTR] * 2 + [_I32] * 3,      # v, out; C, H, W
+    "vkr_quad_store": [_PTR] * 5 + [_I32] * 4 + [_F32],    # x, P00..P11; n, h, w, is_i16; scale
+    "vkr_spectrum_shift": [_PTR] * 2 + [_I32] * 7,          # F, G; n, h, wf, H, kx, klo, khi
+    "vkr_spectrum_pad": [_PTR] * 2 + [_I32] * 4,            # g, P; n, H, kx, wp
 }
 
 

@@ -62,6 +62,11 @@ class UpscalePlan:
     # only the plan families the card's sweep times
     # (fft/mxu_pipeline.py::card_cap_applies, above_cap)
     dense_max: Optional[int] = None
+    # the tier that card runs below its cap, filled with dense_max by
+    # core/tuning.py::with_row alone (not a constructor argument): "fft"
+    # takes r2c u=2 plans to the cuFFT form (fft/mxu_pipeline.py::
+    # fft_tier_selected); "gemm": the dense GEMM tier
+    dense_tier: str = dataclasses.field(default="gemm", init=False)
 
     # --- derived (filled by __post_init__) ---
     H: int = dataclasses.field(init=False)

@@ -16,14 +16,18 @@ makes the woven pre-CAS image from those banks (upscale_precas_mxu):
   rows / chain / c2c   the small dense tier (every axis <= DENSE_MAX), in
                        float32, or float64 for -p 1 where no staged form
                        applies
+  fft       r2c u=2 at -p 0 / -p 2 on Engine.AUTO within the cap of a card
+            whose row names the cuFFT tier (fft_tier_selected): the
+            pruned cuFFT form (fft/cufft.py), which needs no banks
 
 Above the cap a plan that no staged form takes has no bank set (None).
 The JAX package then runs its mixed-radix phases route (integer factors)
 or raises (fractional ones).  The port raises the same ValueError for a
 fraction; an integer factor runs the reference tier instead (torch.fft,
 then the woven CAS; pipeline/upscale.py), since cuFFT is the card's FFT
-and the phases route is a TPU substitute for one.  That is the port's one
-routing departure.  Not ported either: the int8 dense big quad
+and the phases route is a TPU substitute for one.  That and the cuFFT
+form below the cap on a card whose row names it (bank set "fft") are the
+port's routing departures.  Not ported either: the int8 dense big quad
 (VKRESAMPLE_BIG=int8) and the A/B knobs of the JAX module.
 
 The cap between the two tiers is DENSE_MAX, or, on a card with a row in
@@ -44,7 +48,7 @@ from typing import Optional
 import torch
 
 from ..core.bankcache import get_or_build
-from ..core.config import Precision
+from ..core.config import Engine, Precision
 from ..core import plan as plan_mod
 from ..core.plan import UpscalePlan
 from ..ops.weave import weave_grid
@@ -66,6 +70,19 @@ def card_cap_applies(plan: UpscalePlan) -> bool:
     if u == 3 or (u is None and staged.frac_params(plan) == (3, 2)):
         return staged.grid_supported(plan)
     return False
+
+
+def fft_tier_selected(plan: UpscalePlan) -> bool:
+    """True when the plan takes the cuFFT form (fft/cufft.py) in place of
+    the dense GEMM tier: its card's row names that tier (plan.dense_tier
+    "fft", filled by core/tuning.py::plan_for with plan.dense_max), the
+    engine is AUTO (-engine mxu keeps the GEMMs, -engine xla the reference
+    tier), r2c u=2 at -p 0 or -p 2, and every axis within the card's cap.
+    c2c, other factors, -p 1 and plans above the cap keep their routes."""
+    return (plan.dense_tier == "fft" and plan.engine is Engine.AUTO and plan.r2c
+            and plan.integer_upscale == 2 and plan.precision is not Precision.DOUBLE
+            and plan.dense_max is not None
+            and max(plan.h, plan.w, plan.H, plan.W) <= plan.dense_max)
 
 
 def above_cap(plan: UpscalePlan) -> bool:
@@ -119,6 +136,8 @@ def bank_set(plan: UpscalePlan) -> Optional[str]:
         return "c2cgrid"
     if big_grid_selected(plan):
         return "grid"
+    if fft_tier_selected(plan):
+        return "fft"
     if above_cap(plan):
         if plan.precision is not Precision.DOUBLE and staged.staged_supported(plan):
             return "staged"
@@ -146,11 +165,11 @@ def make_dense_banks(plan: UpscalePlan, dtype: Optional[str] = None) -> Optional
     """Numpy banks of an MXU plan (bank_set names the set; detect: "stx_b1"
     staged quad, "sgx1_b1" r2c grid, "cg_ay" c2c grid, "Ymat_ns" rows,
     "Ymat" chain, "Xr" c2c chain), through the disk bank cache; None when
-    no bank set serves the plan.  The dense sets are built in `dtype`
-    (default: the plan's compute dtype, float64 for -p 1), the staged sets
-    in their tag's."""
+    no bank set serves the plan or its form needs none (the cuFFT form).
+    The dense sets are built in `dtype` (default: the plan's compute dtype,
+    float64 for -p 1), the staged sets in their tag's."""
     tag = bank_set(plan)
-    if tag is None:
+    if tag not in _BUILDERS:
         return None
     build, built = _BUILDERS[tag]
     built = built or dtype or str(plan.precision.compute_dtype).removeprefix("torch.")

@@ -7,12 +7,20 @@ on two engines.  The MXU engine (on this card: the GEMM forms of
 fft/dense.py and fft/staged.py, bank choice in fft/mxu_pipeline.py) takes
 one of these routes per frame, as the JAX package's _pipeline does:
 
+  fft quad   r2c u=2 at -p 0 / -p 2 on Engine.AUTO, every axis within
+         the cap of a card whose row in core/tuning.py names the cuFFT tier
+         (the H100; mxu_pipeline.fft_tier_selected), any width:
+         cufft.r2c_quad_fft (rfft2, the spectrum shift into the kept
+         columns, ifft y, the pad, the C2R along x, one store pass into
+         Q2.14 or float32 planes) -> K1 -> four uint8 planes, woven on the
+         device for woven callers
   quad   r2c u=2, width % 128 == 0, parity-plane consumer (the CLI), every
-         axis <= DENSE_MAX: dense.r2c_quad -> K1 cas_parity4_planes_u2 ->
-         four uint8 planes
+         axis <= DENSE_MAX, on every other card and on -engine mxu:
+         dense.r2c_quad -> K1 cas_parity4_planes_u2 -> four uint8 planes
   rows   r2c u=2 otherwise below the cap, every woven caller included
-         (upscale()): dense.r2c_rows -> K2 cas_parity_planes_u2 -> planes
-         (E, D), woven on the device for woven callers
+         (upscale()), where fft quad does not apply: dense.r2c_rows -> K2
+         cas_parity_planes_u2 -> planes (E, D), woven on the device for
+         woven callers
   rows   r2c integer u >= 3 below the cap: dense.r2c_rows -> K5
          cas_quantize_rows_u (row weave fused into the CAS) -> woven image
   chain  r2c fractional u and u=1 below the cap: dense.r2c_chain on the
@@ -55,7 +63,9 @@ channel-serial loop does, with the same output.
 The route also depends on the card: a card with a row in core/tuning.py
 sets the cap between the dense and the staged tiers for the plan families
 its sweep times (fft/mxu_pipeline.py::card_cap_applies; UpscalePlan.
-dense_max, filled by the entry points).
+dense_max, filled by the entry points), and the form of the dense tier
+for r2c u=2 (UpscalePlan.dense_tier: the cuFFT form where the row names
+it, fft quad above).
 
 Every entry point runs on the current CUDA device unless the caller names
 another (``device="cpu"`` runs the kernels' plain versions); without a
@@ -82,7 +92,7 @@ import torch
 from ..core.config import Engine, Precision, fp32_matmul, resolve_device
 from ..core.plan import UpscalePlan
 from ..core.tuning import plan_for
-from ..fft import dense, mxu_pipeline, staged
+from ..fft import cufft, dense, mxu_pipeline, staged
 from ..ops import cas as cas_ops
 from ..ops.cas_cuda import (
     GRID_MAX_U,
@@ -165,7 +175,7 @@ def planes_format(plan: UpscalePlan) -> Optional[str]:
     tag = mxu_pipeline.bank_set(plan)
     if tag in ("c2cgrid", "grid"):
         return "grid"
-    if tag == "staged":
+    if tag in ("staged", "fft"):
         return "quad"
     if tag == "rows":
         return _parity_route(plan)
@@ -180,9 +190,10 @@ def parity_planes_supported(plan: UpscalePlan) -> bool:
 
 def make_device_banks(plan: UpscalePlan, engine: Engine, device, planes_out: bool):
     """The banks of an MXU plan on `device` (built in f64 numpy, through
-    the disk bank cache), None for the XLA engine and for plans with no
-    bank set.  Of the row-split banks only the x bank the route reads is
-    uploaded: alpha_odd for the quad route, alpha otherwise."""
+    the disk bank cache), None for the XLA engine, for plans with no bank
+    set and for the cuFFT form, which needs none.  Of the row-split banks
+    only the x bank the route reads is uploaded: alpha_odd for the quad
+    route, alpha otherwise."""
     if engine is not Engine.MXU:
         return None
     banks = mxu_pipeline.make_dense_banks(plan)
@@ -239,18 +250,22 @@ def _pipeline(img_u8: torch.Tensor, banks, plan: UpscalePlan, engine: Engine,
         if plan.precision is Precision.HALF
         else {}
     )
+    fft_form = mxu_pipeline.fft_tier_selected(plan)  # bank set "fft"
     if plan.precision is Precision.DOUBLE:
         # no kernel: the float64 pre-CAS image, then the banded CAS
         with span("vkr.precas"):
             v = _precas(cas_ops.normalize_u8(x_raw, torch.float64), plan, engine, banks)
         with span("vkr.cas"):
             out = cas_ops.cas_quantize_banded(v, plan.sharpen)
-    elif banks is not None and ("cg_ay" in banks or "stx_b1" in banks or "sgx1_b1" in banks):
-        # the staged forms: raw uint8 feeds the convolutions (/255 folded
-        # into the x banks); the parity or phase planes go to the fused
-        # per-parity CAS
+    elif fft_form or (
+            banks is not None and ("cg_ay" in banks or "stx_b1" in banks or "sgx1_b1" in banks)):
+        # the cuFFT form (bank set "fft") and the staged forms: raw uint8
+        # feeds the transform (/255 folded into the store or the x banks);
+        # the parity or phase planes go to the fused per-parity CAS
         with span("vkr.precas"):
-            if "cg_ay" in banks:
+            if fft_form:
+                u, Ps = 2, cufft.r2c_quad_fft(x_raw, plan)
+            elif "cg_ay" in banks:
                 u, Ps = staged.c2c_grid_u(banks), staged.c2c_grid_staged(x_raw, banks, **codec)
             elif "stx_b1" in banks:
                 u, Ps = 2, staged.r2c_quad_staged(x_raw, banks, **codec)

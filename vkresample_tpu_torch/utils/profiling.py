@@ -39,6 +39,8 @@ SPANS = (
     "vkr.precas.x",  # r2c_quad and r2c_quad_staged: the x pass (P00, P01, the
                      # y-Nyquist correction rows)
     "vkr.precas.y",  # the same two: the y pass (P10, P11 and their correction)
+    "vkr.precas.fft",  # fft/cufft.py::r2c_quad_fft: rfft2, the spectrum shift,
+                       # ifft y, irfft x (its store pass is vkr.codec at -p 2)
     "vkr.codec",     # the Q2.14 store and load, ops/cas.py (-p 2)
     "vkr.cas",       # the CAS kernel's call, its wrapper included
 )
