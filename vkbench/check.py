@@ -17,9 +17,14 @@ def weave(planes, fmt) -> torch.Tensor:
     """The port's output -> the (N, C, H, W) uint8 image.  'quad' and
     'grid': p*p planes (N, C, H/p, W/p) in row-major (ry, rx) order, plane
     ry*p + rx holding out[..., ry::p, rx::p]; 'rows': (E, D), the even and
-    odd output rows; None: the image itself."""
+    odd output rows; None: the image itself, bare or as the one element of
+    a tuple or list (as loadgen and harness.Keeper hand every output on)."""
     if fmt is None:
-        return planes
+        if isinstance(planes, torch.Tensor):
+            return planes
+        if len(planes) != 1:
+            raise ValueError(f"a woven output is one image, not {len(planes)} planes")
+        return planes[0]
     if fmt == "rows":
         p_y, p_x = 2, 1
     elif fmt in ("quad", "grid"):

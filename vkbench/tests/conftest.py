@@ -13,6 +13,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 TINY_CELL = "tiny.pair"
+WOVEN_CELL = "tiny.woven"  # -u 3: the port hands back the finished image, no planes
 
 
 def pytest_configure(config):
@@ -33,6 +34,7 @@ TINY_CONFIG = {
     "precision": "HALF", "sharpen": 0.2, "r2c": True, "engine": "AUTO",
     "check": {"max_lsb": 4, "mismatch_pct": 2.0},
 }
+WOVEN_CONFIG = dict(TINY_CONFIG, name="tiny-64x128-u3-p2", upscale=3.0)
 TINY_TRAFFIC = {
     "frames_per_call": 2, "pool_calls": 3, "input": "pinned_host",
     "in_flight": 2, "warmup_calls": 2, "check_calls": 3,
@@ -48,25 +50,28 @@ def read(run):
 @pytest.fixture
 def tiny_root(tmp_path):
     """A tree holding vkbench/ and a BENCHMARK.json of the real cells plus
-    the cell tiny.pair, whose configuration, traffic and metric were added
-    as new files only."""
+    the cells tiny.pair and tiny.woven, whose configurations, traffic and
+    metric were added as new files only."""
     root = tmp_path / "checkout"
     shutil.copytree(os.path.join(ROOT, "vkbench"), root / "vkbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         spec = json.load(f)
-    (root / "vkbench" / "configs" / "tiny-64x128-u2-p2.json").write_text(json.dumps(TINY_CONFIG))
     (root / "vkbench" / "traffic" / "tiny3.json").write_text(json.dumps(TINY_TRAFFIC))
     (root / "vkbench" / "metrics" / "dummy_calls.py").write_text(DUMMY_METRIC)
-    spec["configs"].append({"name": TINY_CONFIG["name"], "source": "a test", "reduced": [],
-                            "file": "vkbench/configs/tiny-64x128-u2-p2.json", "why": "a test"})
-    spec["workloads"].append({"name": TINY_CELL, "config": TINY_CONFIG["name"],
-                              "traffic": "tiny3", "chips": 1, "why": "a test"})
+    cells = [(TINY_CELL, TINY_CONFIG), (WOVEN_CELL, WOVEN_CONFIG)]
+    for cell, config in cells:
+        file = f"vkbench/configs/{config['name']}.json"
+        (root / file).write_text(json.dumps(config))
+        spec["configs"].append({"name": config["name"], "source": "a test", "reduced": [],
+                                "file": file, "why": "a test"})
+        spec["workloads"].append({"name": cell, "config": config["name"],
+                                  "traffic": "tiny3", "chips": 1, "why": "a test"})
     for m in spec["end_to_end"]:
         if "workloads" in m and m["name"] in ("frames_per_s", "latency_ms_p95"):
-            m["workloads"].append(TINY_CELL)
+            m["workloads"] += [cell for cell, _ in cells]
     spec["per_layer"].append({"name": "dummy_calls", "unit": "calls", "better": "higher",
                               "source": "program_counter", "layer": "test", "moves": "frames_per_s",
-                              "workloads": [TINY_CELL]})
+                              "workloads": [cell for cell, _ in cells]})
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
     return str(root)

@@ -6,7 +6,7 @@ import sys
 import pytest
 import torch
 
-from conftest import ROOT, TINY_CELL
+from conftest import ROOT, TINY_CELL, WOVEN_CELL
 
 sys.path.insert(0, ROOT)
 
@@ -56,14 +56,17 @@ def _altered(fn):
     return run
 
 
+@pytest.mark.parametrize("cell,fmt", [(TINY_CELL, "quad"), (WOVEN_CELL, None)],
+                         ids=["quad", "woven"])
 @pytest.mark.parametrize("fault", [None, _stale, _half_batch, _altered],
                          ids=["sound", "state_unchanged", "half_batch", "answer_altered"])
-def test_a_fault_in_the_timed_path_comes_out_not_correct(tiny_root, fault):
+def test_a_fault_in_the_timed_path_comes_out_not_correct(tiny_root, cell, fmt, fault):
     def build(config, device):
-        fn, fmt = sut.build(config, device)
-        return (fn if fault is None else fault(fn)), fmt
+        fn, got_fmt = sut.build(config, device)
+        assert got_fmt == fmt  # the layout this case is meant to check
+        return (fn if fault is None else fault(fn)), got_fmt
 
-    res = harness.run_cell(tiny_root, TINY_CELL, 2**31 + 99, 1, False, "cpu", 0.0,
+    res = harness.run_cell(tiny_root, cell, 2**31 + 99, 1, False, "cpu", 0.0,
                            build=build, log=lambda s: None)
     assert res["correct"] is (fault is None), res["check"]
     assert (res["failed"] > 0) is (fault is not None)

@@ -10,7 +10,7 @@ import sys
 import pytest
 import torch
 
-from conftest import ROOT, TINY_CELL
+from conftest import ROOT, TINY_CELL, WOVEN_CELL
 
 sys.path.insert(0, ROOT)
 
@@ -80,10 +80,11 @@ def test_every_cell_resolves_to_its_files(name):
         assert callable(harness.load_module(cell.metric_path(metric)).read)
 
 
+@pytest.mark.parametrize("cell", [TINY_CELL, WOVEN_CELL])
 @pytest.mark.parametrize("traced", [False, True])
-def test_result_line_of_a_cell_added_as_files(tiny_root, traced):
+def test_result_line_of_a_cell_added_as_files(tiny_root, traced, cell):
     lines = []
-    res = harness.run_cell(tiny_root, TINY_CELL, 2**31 + 11, 1, traced, "cpu", 0.0,
+    res = harness.run_cell(tiny_root, cell, 2**31 + 11, 1, traced, "cpu", 0.0,
                            log=lines.append)
     assert list(res)[-1] == "check"
     assert {"correct", "attempted", "failed", "metrics", "device"} <= set(res)
@@ -102,6 +103,7 @@ def test_result_line_of_a_cell_added_as_files(tiny_root, traced):
 @pytest.mark.parametrize("name,nbytes,ops", [
     ("flagship-2048x1024-u2-p2", 3 * 2048 * 4096 * 3, 40 * 3 * 2048 * 4096),
     ("uhd-3840x2160-u2-p2", 3 * 4320 * 7680 * 3, 40 * 3 * 4320 * 7680),
+    ("hd-1920x1080-u2-p2", 3 * 2160 * 3840 * 3, 40 * 3 * 2160 * 3840),
 ])
 def test_roofline_counts_the_cas_stages_work(name, nbytes, ops):
     mod = harness.load_module(os.path.join(ROOT, "vkbench", "metrics", "cas_roofline.batch.py"))
@@ -172,6 +174,10 @@ def test_weave_puts_each_plane_back(fmt, n_planes, p_y, p_x):
     planes = tuple(img[..., i // p_x::p_y, i % p_x::p_x].contiguous() for i in range(n_planes))
     assert torch.equal(check.weave(planes, fmt), img)
     assert check.weave(img, None) is img
+    assert check.weave((img,), None) is img  # as loadgen and the Keeper hand it on
+    assert check.weave([img], None) is img
+    with pytest.raises(ValueError):
+        check.weave(planes, None)  # planes under a woven layout: a fault, not an image
 
 
 def test_inputs_and_sample_come_from_the_seed():
@@ -257,8 +263,9 @@ def test_forbidden_modules_compares_whole_top_level_names():
 
 
 @pytest.mark.cuda
-def test_a_tiny_cell_on_the_card(card, tiny_root):
-    res = harness.run_cell(tiny_root, TINY_CELL, 2**31 + 3, 1, True, card, 0.0,
+@pytest.mark.parametrize("cell", [TINY_CELL, WOVEN_CELL])
+def test_a_tiny_cell_on_the_card(card, tiny_root, cell):
+    res = harness.run_cell(tiny_root, cell, 2**31 + 3, 1, True, card, 0.0,
                            log=lambda s: None)
     assert res["correct"] is True and res["device"]["platform"] == "gpu"
     assert 0 < res["device"]["busy_s"] <= res["device"]["window_s"]
