@@ -22,15 +22,18 @@ LOW_ROW = tuning.DeviceTuning(dense_max=LOW)
 FFT_ROW = tuning.DeviceTuning(dense_max=4608, dense_tier="fft")  # the H100's row
 XY = ("vkr.precas.x", "vkr.precas.y")
 
-# (id, plan, planes_out, a card's row or None, the bank set the route reads,
-# spans under vkr.call: layouts, the pass spans in vkr.precas, codec calls
-# inside vkr.precas)
+# (id, plan (upscale 2 unless given), planes_out, a card's row or None, the
+# bank set the route reads, spans under vkr.call: layouts, the pass spans in
+# vkr.precas, codec calls inside vkr.precas)
 ROUTES = [
     ("quad-p2", dict(h=64, w=128, precision=Precision.HALF), True, None, "rows", (1, XY, 6)),
     ("staged-quad-p2", dict(h=32, w=128, precision=Precision.HALF), True, LOW_ROW, "staged",
      (1, XY, 6)),
     ("rows-p2-woven", dict(h=32, w=96, precision=Precision.HALF), False, None, "rows",
-     (3, (), 3)),
+     (3, XY, 3)),
+    # u = 3 on the H100's row: the rows route + K5, the GEMM tier kept below the cap
+    ("rows-u3-p2-woven", dict(h=24, w=40, upscale=3.0, precision=Precision.HALF), False,
+     FFT_ROW, "rows", (2, XY, 3)),
     ("quad-p0", dict(h=64, w=128, precision=Precision.SINGLE), True, None, "rows", (1, XY, 0)),
     ("fft-quad-p2", dict(h=64, w=128, precision=Precision.HALF), True, FFT_ROW, "fft",
      (1, ("vkr.precas.fft",), 1)),
@@ -48,7 +51,7 @@ def route(request, monkeypatch):
     if row is not None:
         monkeypatch.setattr(tuning, "_row", lambda device: row)
     tpipe._build.cache_clear()
-    plan = UpscalePlan(upscale=2.0, channels=3, **kw)
+    plan = UpscalePlan(channels=3, **{"upscale": 2.0, **kw})
     assert mxu_pipeline.bank_set(tuning.plan_for(plan, "cpu")) == tag
     fn = tpipe.build_upscale(plan, "cpu", planes_out=planes_out, planar_out=planes_out)
     rng = np.random.default_rng(len(request.param[0]))

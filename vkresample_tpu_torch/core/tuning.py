@@ -23,6 +23,11 @@ it the staged quad + K1 on every card):
   a row with dense_tier "fft" (the H100)       cuFFT form + K1
   -engine xla, every card                      the reference tier + K3
 
+Every other r2c plan keeps its GEMM form below the cap on every row:
+integer u >= 3 the rows route + K5 (dense.r2c_rows; on the H100 the
+benchmark cell u3-720p.batch8 measures it, 1280x720 -> 3840x2160 at u=3),
+fractional factors the chain + K3.
+
 The JAX table's other eleven fields are left out.  They are Pallas band
 heights and strip widths: rows_block, cas_block_rows, parity_block,
 quad_wsb, quad_wmax, quad_block, quad_strip_block, quad_fw_slots_block and
@@ -83,8 +88,9 @@ _TABLE = {
     # reference tier at 0.75-4.61 ms a frame, ahead of both on every plan
     # (0.85 against the dense quad's 1.87 at the 2048x1024 u=2 frame), so
     # u=2 below the cap runs the pruned cuFFT form (dense_tier "fft"); u=3
-    # and 3/2 keep the GEMM tier (no benchmark cell runs them yet).  The
-    # PCIe and NVL parts were not measured: they keep the default.
+    # and 3/2 keep the GEMM tier (u=3: the rows route + K5, which the
+    # benchmark cell u3-720p.batch8 measures at 1280x720 -> 3840x2160).
+    # The PCIe and NVL parts were not measured: they keep the default.
     "H100 80GB HBM3": DeviceTuning(dense_max=4608, dense_tier="fft"),
 }
 

@@ -27,6 +27,13 @@ Three forms, by geometry:
 Banks are built once per geometry in f64 numpy; the GEMMs run in float32
 on the device (callers keep TF32 off, pipeline/upscale.py).  The JAX
 package's bf16 hi|lo and int8 digit GEMM forms are not ported.
+
+``r2c_rows`` and ``r2c_quad`` open the spans "vkr.precas.x" (the x GEMM and
+the y-Nyquist correction rows) and "vkr.precas.y" (the y GEMM and its
+rank-r correction) of utils/profiling.py; the Q2.14 codec's own
+"vkr.codec" spans fall between them.  r2c_rows.calls counts the row-split
+calls, so a run can show that the route engaged (the rows route + K5 of
+integer u >= 3, and u = 2 where neither quad form applies).
 """
 from __future__ import annotations
 
@@ -292,17 +299,23 @@ def r2c_rows(x_raw: torch.Tensor, banks: dict, store=None, load=None):
     store/load: optional pre-CAS storage codec (int16 Q2.14 in half mode).
     When given, U and O are returned stored AND the y GEMM reads the loaded
     (dequantized) stored U, as the JAX route does (dense.py:818-824)."""
+    r2c_rows.calls += 1
     h = x_raw.shape[-2]
-    U, T2 = r2c_x_only(x_raw, banks)
+    with span("vkr.precas.x"):
+        U, T2 = r2c_x_only(x_raw, banks)
     if store is None:
         Us, Um = U, U
     else:
         Us = store(U)
         Um = load(Us)
-    O = torch.matmul(banks["Ymat_ns"][:h].transpose(0, 1), Um)
-    if T2 is not None:
-        O = O + torch.matmul(banks["Ymat_ns"][h:].transpose(0, 1), T2)
+    with span("vkr.precas.y"):
+        O = torch.matmul(banks["Ymat_ns"][:h].transpose(0, 1), Um)
+        if T2 is not None:
+            O = O + torch.matmul(banks["Ymat_ns"][h:].transpose(0, 1), T2)
     return (Us, O) if store is None else (Us, store(O))
+
+
+r2c_rows.calls = 0
 
 
 def weave_rows(U: torch.Tensor, O: torch.Tensor, u: int) -> torch.Tensor:

@@ -36,9 +36,11 @@ SPANS = (
                      # port_dispatch_pct.batch
     "vkr.layout",    # the planar copy of the input, the output weave or movedim
     "vkr.precas",    # the pre-CAS transform, whichever route runs it
-    "vkr.precas.x",  # r2c_quad and r2c_quad_staged: the x pass (P00, P01, the
+    "vkr.precas.x",  # fft/dense.py r2c_rows and r2c_quad, fft/staged.py
+                     # r2c_quad_staged: the x pass (U or P00, P01; the
                      # y-Nyquist correction rows)
-    "vkr.precas.y",  # the same two: the y pass (P10, P11 and their correction)
+    "vkr.precas.y",  # the same three: the y pass (O or P10, P11; their
+                     # rank-r correction)
     "vkr.precas.fft",  # fft/cufft.py::r2c_quad_fft: rfft2, the spectrum shift,
                        # ifft y, irfft x (its store pass is vkr.codec at -p 2)
     "vkr.codec",     # the Q2.14 store and load, ops/cas.py (-p 2)
